@@ -1,0 +1,427 @@
+"""GPU execution engine for batched alignment DPs.
+
+Collects DP requests from align_region_steps generators across many
+regions and queries and dispatches them in shape-bucketed batches:
+
+  "ext"    score-only extension DPs  -> kernels/nasw_ext (K1)
+  "cigars" anchored gap-filling DPs  -> kernels/nasw_cigar_scan (K2 + K3)
+
+Launches are asynchronous on the card's current stream; the host
+engine's share of the round (jobs routed to the host by design) runs
+while the card works, and flush_end collects.
+
+Host routing (part of the algorithm, identical results, counted in
+n_host): ext jobs outside ext_fits_int16, longer than the largest
+bucket or shorter than MIN_DEVICE_NL; CIGAR jobs shorter than
+CIG_MIN_NL or wider than the largest class, --spsc CIGAR jobs whose
+folded donor goes negative, walks that hit the round cap, and every
+CIGAR job when go == 0 (the scan DP needs go >= 1; the striped kernel
+that serves go == 0 on the TPU is not ported yet).
+
+There is no hidden fallback: a build failure, a launch error or a
+device fault raises out of the engine.
+
+CIGAR memory policy: a scan batch allocates its tb and hint planes
+(tb_bytes(), int16 each) at launch; the per-batch cap and the cap on
+launched-but-uncollected planes are fractions of the card's own memory,
+and a batch is launched only after older batches are collected down to
+that cap.
+"""
+
+from __future__ import annotations
+
+import os as _os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .align import DpEnv
+from .kernels import resolve_device
+from .kernels import nasw_cigar_scan as csk
+from .kernels import nasw_ext as nk
+from .native import DPF_CIGAR, DPF_EXT_LEFT, DPF_EXT_RIGHT
+from .options import MapOpt
+
+AL_BUCKETS = (128, 512, 1024)
+# the top bucket covers the default max_intron/2 = 100kb extension
+# window (map.c:226) entirely on the device
+NL_BUCKETS = (2112, 4224, 8448, 16896, 33792, 67584, 101376)
+MIN_DEVICE_NL = 1024     # smaller windows are cheaper on the host
+CIG_SLEN_CLASSES = (4, 16, 64)          # al <= 32 / 128 / 512
+CIG_NL_BUCKETS = (2048, 4096, 8192, 16384, 32768, 65536)
+CIG_MIN_NL = 512
+# fractions of the card's memory: one CIGAR batch's planes, and all
+# launched-but-uncollected planes together
+CIG_TB_FRACTION = 0.25
+PENDING_TB_FRACTION = 0.30
+# ext batches hold about this many (problem x row) track cells, so
+# short windows go in wide launches and 100kb windows in 128-problem ones
+EXT_BATCH_CELLS = 1 << 24
+
+
+def ext_fits_int16(al: int, mat_max: int, end_bonus: int) -> bool:
+    """True when the int32 ext kernel is provably bit-equivalent to the
+    reference's saturating-int16 arithmetic (nasw-sse.c:342-402) for an
+    extension problem with query length ``al``: every true prefix score
+    is <= al*max(mat), the tracked candidate adds end_bonus once, and
+    the floor clip never binds the outputs (proof in
+    miniprot_tpu/device.py:ext_fits_int16)."""
+    return al * max(mat_max, 0) + max(end_bonus, 0) <= 32767
+
+
+def ext_capacity(nl_b: int) -> int:
+    """Problems per ext batch for an nl bucket (a power of two in
+    [128, 1024])."""
+    cap = 1024
+    while cap > nk.B_LANES and cap * nl_b > EXT_BATCH_CELLS:
+        cap >>= 1
+    return cap
+
+
+def _memory_bytes(dev: torch.device) -> int:
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    return int(_os.sysconf("SC_PAGE_SIZE") * _os.sysconf("SC_PHYS_PAGES"))
+
+
+@dataclass
+class _ExtJob:
+    nsq: np.ndarray
+    asq: np.ndarray
+    ss: np.ndarray | None
+    io: int
+    ext_left: bool
+    result: tuple | None = None
+
+
+@dataclass
+class _CigJob:
+    nsq: np.ndarray
+    asq: np.ndarray
+    ss: np.ndarray | None
+    result: tuple | None = None
+
+
+class GpuExtEngine:
+    """Batches alignment DPs onto the CUDA kernels (or, for
+    device="cpu", onto their plain PyTorch versions)."""
+
+    def __init__(self, opt: MapOpt, device="cuda"):
+        self.opt = opt
+        self.device = resolve_device(device)
+        self.env = DpEnv(opt)  # host engine + sp/io defaults
+        self.sp = self.env.sp
+        self.scalars = (opt.go, opt.ge, opt.fs, opt.io, opt.xdrop,
+                        opt.end_bonus, opt.ie_coef)
+        self.mat = opt.mat
+        self.mat_max = int(np.max(opt.mat))
+        mem = _memory_bytes(self.device)
+        self.cig_tb_cap = int(mem * CIG_TB_FRACTION)
+        self.pending_tb_cap = int(mem * PENDING_TB_FRACTION)
+        self.peak_pending_tb = 0     # most tb+hint bytes ever in flight
+        self.ext_jobs: list[_ExtJob] = []
+        self.cig_jobs: list[_CigJob] = []
+        self.requests: list[tuple] = []   # ("ext", idx) | ("cigars", [idx...])
+        self.n_device = 0
+        self.n_host = 0
+        self.batches = {"ext": 0, "cig": 0, "cig_small": 0}
+        # launches per (kind, width, nl bucket)
+        self.bucket_batches: dict[tuple, int] = {}
+
+    # ---- request intake ----
+
+    def submit(self, req) -> int:
+        if req[0] == "ext":
+            _, nsq, asq, ss, io, ext_left = req
+            self.ext_jobs.append(_ExtJob(nsq, asq, ss, io, ext_left))
+            self.requests.append(("ext", len(self.ext_jobs) - 1))
+        else:
+            idxs = []
+            for nsq, asq, ss in req[1]:
+                self.cig_jobs.append(_CigJob(nsq, asq, ss))
+                idxs.append(len(self.cig_jobs) - 1)
+            self.requests.append(("cigars", idxs))
+        return len(self.requests) - 1
+
+    # ---- batching ----
+
+    def _prep(self, job, ext_left, io):
+        return nk.prep_problem(job.nsq, job.asq, sp=self.sp,
+                               sp_null_bonus=self.opt.sp_null_bonus, io=io,
+                               ext_left=ext_left, ss=job.ss)
+
+    def _launch_ext(self, ext_jobs) -> tuple:
+        """Bucket + launch the ext batches; returns (pending, host_jobs).
+        Jobs without an external splice track ship raw nt4 windows
+        (device prep); --spsc jobs keep host prep."""
+        buckets: dict[tuple, list[int]] = {}
+        host_jobs: list[int] = []
+        for i, job in enumerate(ext_jobs):
+            nl, al = len(job.nsq), len(job.asq)
+            if (nl < MIN_DEVICE_NL or al > AL_BUCKETS[-1]
+                    or nl > NL_BUCKETS[-1]
+                    or not ext_fits_int16(al, self.mat_max,
+                                          self.opt.end_bonus)
+                    or self.opt.ie_coef > 8.0):  # threshold-table growth
+                host_jobs.append(i)
+                continue
+            al_b = next(b for b in AL_BUCKETS if al <= b)
+            nl_b = next(b for b in NL_BUCKETS if nl <= b)
+            if job.ss is not None and int(
+                    self.opt.ie_coef * np.log2(nl_b) + 0.5) > 126:
+                # host-prepped (--spsc) batches stream the log-length
+                # penalty as int8 (126: one count of margin for
+                # mp_log2_f32-vs-log2 drift)
+                host_jobs.append(i)
+                continue
+            buckets.setdefault((al_b, nl_b), []).append(i)
+        from . import tables
+        from .sysutil import profiler
+        T = tables.get_tables()
+        pending: list = []
+        for (al_b, nl_b), idxs in buckets.items():
+            cap = ext_capacity(nl_b)
+            raw_all = [i for i in idxs if ext_jobs[i].ss is None]
+            old_all = [i for i in idxs if ext_jobs[i].ss is not None]
+            for c0 in range(0, len(raw_all), cap):
+                chunk = raw_all[c0:c0 + cap]
+                batch = nk.RawExtBatch(
+                    al_b, nl_b, self.mat, self.scalars, sp=self.sp,
+                    trans_code=tables._default_code, device=self.device,
+                    capacity=len(chunk))
+                for i in chunk:
+                    job = ext_jobs[i]
+                    nt4 = T.nt4[job.nsq]
+                    aas = T.aa20[job.asq]
+                    if job.ext_left:
+                        nt4 = nt4[::-1]
+                        aas = aas[::-1]
+                    batch.add_raw(nt4, aas, io=job.io, ext_left=job.ext_left)
+                pending.append((chunk, batch, batch.launch()))
+            for c0 in range(0, len(old_all), nk.B_LANES):
+                chunk = old_all[c0:c0 + nk.B_LANES]
+                batch = nk.ExtBatch(al_b, nl_b, self.mat, self.scalars,
+                                    device=self.device, capacity=len(chunk))
+                for i in chunk:
+                    job = ext_jobs[i]
+                    nas, aas, d, a = self._prep(job, job.ext_left, job.io)
+                    batch.add(nas, aas, d, a, io=job.io)
+                pending.append((chunk, batch, batch.launch()))
+        for chunk, batch, _ in pending:
+            self.n_device += len(chunk)
+            self.batches["ext"] += 1
+            key = ("ext", batch.al, batch.nl)
+            self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
+            profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n)
+        return pending, host_jobs
+
+    def _ext_host(self, ext_jobs, i) -> None:
+        job = ext_jobs[i]
+        sc, ntl, aal, _ = self.env.dp(
+            job.nsq, job.asq,
+            DPF_EXT_LEFT if job.ext_left else DPF_EXT_RIGHT,
+            ss=job.ss, io=job.io)
+        job.result = (sc, ntl, aal)
+        self.n_host += 1
+
+    def _collect(self, batch, handle):
+        import time as _time
+        from .sysutil import profiler
+        t0 = _time.monotonic()
+        try:
+            return batch.collect(handle)
+        finally:
+            profiler.add_device_block(_time.monotonic() - t0)
+
+    def cig_shape(self, nl: int, al: int):
+        """(slen_class, nl_bucket) for a CIGAR job, or None when the job
+        runs on the host.  A bucket is usable when a full batch's tb and
+        hint planes fit the per-batch cap."""
+        if nl < CIG_MIN_NL or al < 1:
+            return None
+        slen_p = (al + 7) // 8
+        sc = next((s for s in CIG_SLEN_CLASSES if slen_p <= s), None)
+        if sc is None:
+            return None
+        W = sc * 8
+        cls = (csk.SmallScanCigarBatch if W <= csk.SMALL_W
+               else csk.RawScanCigarBatch)
+        for b in CIG_NL_BUCKETS:
+            if nl <= b and cls.planes_bytes(b, W) <= self.cig_tb_cap:
+                return sc, b
+        return None
+
+    def _cig_host(self, cig_jobs, i) -> None:
+        job = cig_jobs[i]
+        sc, _, _, c = self.env.dp(job.nsq, job.asq, DPF_CIGAR, ss=job.ss)
+        job.result = (sc, c)
+        self.n_host += 1
+
+    def _decode_cig_one(self, cig_jobs, idxs, batch, handles) -> None:
+        from .sysutil import profiler
+        results = self._collect(batch, handles)
+        for k, r in zip(idxs, results):
+            if r is None:
+                # the run-walk hit its round cap for this problem (an
+                # adversarially fragmented path): redo it on the host
+                profiler.add_device_dp(-batch.nl * batch.al, -1,
+                                       kind="cig_small" if batch.al <= 32
+                                       else "cig")
+                self.n_device -= 1
+                self._cig_host(cig_jobs, k)
+            else:
+                cig_jobs[k].result = r
+
+    def _launch_cig(self, cig_jobs) -> tuple:
+        """Bucket + launch the CIGAR batches; returns (pending,
+        host_jobs).  Before each launch, the oldest launched batches are
+        collected until the new batch's planes fit under
+        pending_tb_cap."""
+        host_jobs: list[int] = []
+        buckets: dict[tuple, list[int]] = {}
+        for i, job in enumerate(cig_jobs):
+            # go == 0: the scan DP needs go >= 1 and the striped kernel
+            # (B4) that serves go == 0 on the TPU is not ported yet, so
+            # these jobs run on the host engine
+            shape = (None if self.scalars[0] < 1
+                     else self.cig_shape(len(job.nsq), len(job.asq)))
+            if shape is None:
+                host_jobs.append(i)
+                continue
+            buckets.setdefault(shape, []).append(i)
+        from . import tables
+        from .sysutil import profiler
+        T = tables.get_tables()
+        pending: list = []
+        outstanding = [0]
+
+        def launch(idxs, batch):
+            need = batch.tb_bytes()
+            while pending and outstanding[0] + need > self.pending_tb_cap:
+                o_idxs, o_batch, o_handles = pending.pop(0)
+                self._decode_cig_one(cig_jobs, o_idxs, o_batch, o_handles)
+                outstanding[0] -= o_batch.tb_bytes()
+            pending.append((idxs, batch, batch.launch()))
+            outstanding[0] += need
+            self.peak_pending_tb = max(self.peak_pending_tb, outstanding[0])
+            kind = "cig_small" if batch.al <= 32 else "cig"
+            self.batches[kind] += 1
+            key = (kind, batch.al, batch.nl)
+            self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
+            self.n_device += len(idxs)
+            profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n,
+                                   kind=kind)
+
+        for (slen, nl_b), idxs in buckets.items():
+            raw_cls = (csk.SmallScanCigarBatch if slen * 8 <= csk.SMALL_W
+                       else csk.RawScanCigarBatch)
+            cap = raw_cls.CAPACITY
+            raw_all = [i for i in idxs if cig_jobs[i].ss is None]
+            old_all = [i for i in idxs if cig_jobs[i].ss is not None]
+            for c0 in range(0, len(raw_all), cap):
+                raw_idx = raw_all[c0:c0 + cap]
+                # no --spsc track: donor >= 0 by construction, so the
+                # folded donor stream cannot go negative
+                batch = raw_cls(slen * 8, nl_b, self.mat, self.scalars,
+                                sp=self.sp, trans_code=tables._default_code,
+                                device=self.device)
+                for i in raw_idx:
+                    job = cig_jobs[i]
+                    batch.add_raw(T.nt4[job.nsq], T.aa20[job.asq],
+                                  io=self.opt.io)
+                launch(raw_idx, batch)
+            for c0 in range(0, len(old_all), csk.B):
+                old_idx = old_all[c0:c0 + csk.B]
+                usable = []
+                batch = csk.ScanCigarBatch(slen * 8, nl_b, self.mat,
+                                           self.scalars, device=self.device)
+                for i in old_idx:
+                    job = cig_jobs[i]
+                    nas, aas, d, a = self._prep(job, False, self.opt.io)
+                    if int(d.min()) + self.opt.io < 0:
+                        # folded donor stream would go negative: the
+                        # single-saturation fold no longer matches the
+                        # reference's double-saturating subs; host it
+                        self._cig_host(cig_jobs, i)
+                        continue
+                    batch.add(nas, aas, d, a, io=self.opt.io)
+                    usable.append(i)
+                if usable:
+                    launch(usable, batch)
+        return pending, host_jobs
+
+    def flush_begin(self) -> "_Flight":
+        """Launch every batch of the current request set, then run the
+        host engine's share while the card works.  Returns the in-flight
+        state; call flush_end(flight) exactly once for the results."""
+        from .sysutil import profiler
+        fl = _Flight()
+        profiler.flush_rounds += 1
+        fl.requests, self.requests = self.requests, []
+        fl.ext_jobs, self.ext_jobs = self.ext_jobs, []
+        fl.cig_jobs, self.cig_jobs = self.cig_jobs, []
+        fl.ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
+        fl.cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        for i in ext_host:
+            self._ext_host(fl.ext_jobs, i)
+        if cig_host:
+            # one batched native call instead of one per tiny rectangle
+            res = self.env.dp_cigars(
+                [(fl.cig_jobs[i].nsq, fl.cig_jobs[i].asq,
+                  fl.cig_jobs[i].ss) for i in cig_host])
+            for i, r in zip(cig_host, res):
+                fl.cig_jobs[i].result = r
+                self.n_host += 1
+        return fl
+
+    def flush_end(self, fl: "_Flight") -> list:
+        """Collect the flight's batches and return results aligned with
+        its submit order."""
+        for chunk, batch, handle in fl.ext_pending:
+            for i, r in zip(chunk, self._collect(batch, handle)):
+                fl.ext_jobs[i].result = r
+        for idxs, batch, handles in fl.cig_pending:
+            self._decode_cig_one(fl.cig_jobs, idxs, batch, handles)
+        fl.ext_pending = fl.cig_pending = None
+        out = []
+        for kind, ref in fl.requests:
+            if kind == "ext":
+                out.append(fl.ext_jobs[ref].result)
+            else:
+                out.append([fl.cig_jobs[i].result for i in ref])
+        return out
+
+    def flush(self) -> list:
+        return self.flush_end(self.flush_begin())
+
+
+class _Flight:
+    """One in-flight flush: its requests/jobs snapshot and the launched
+    batches."""
+
+    __slots__ = ("requests", "ext_jobs", "cig_jobs",
+                 "ext_pending", "cig_pending")
+
+
+def pump_align_generators(gens: list, engine: GpuExtEngine) -> None:
+    """Advance align_region_steps generators in lockstep, batching their
+    DP requests through the engine.  Each generator yields a LIST of
+    requests per round and receives the matching list of results."""
+    waiting = {}
+    for gi, g in enumerate(gens):
+        try:
+            waiting[gi] = next(g)
+        except StopIteration:
+            pass
+    while waiting:
+        handles = {gi: [engine.submit(req) for req in reqs]
+                   for gi, reqs in waiting.items()}
+        results = engine.flush()
+        nxt = {}
+        for gi, hs in handles.items():
+            try:
+                nxt[gi] = gens[gi].send([results[h] for h in hs])
+            except StopIteration:
+                pass
+        waiting = nxt

@@ -1,0 +1,211 @@
+"""Hand-written CUDA kernels for Hopper, their loader and launch counts.
+
+Route: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
+process per source, all started together) and linked into ONE shared
+library with a plain C interface in the package's build directory,
+which is loaded with ctypes.  The library is rebuilt when any source is
+newer than it.  Each C entry point launches on the stream it is given
+and returns ``cudaGetLastError()``; :func:`call` raises on a non-zero
+code, so a refused launch never passes silently.
+
+Nothing here imports a GPU toolchain at module import: the build runs
+on the first launch (or on an explicit :func:`build`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes as ct
+import fcntl
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+from ..native.build import BUILD_DIR
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SO = os.path.join(BUILD_DIR, "libmpkernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel wrapper; a wrapper adds one exactly where it
+# launches its CUDA kernel (plain-version calls on CPU tensors never count)
+LAUNCHES = {"ext_dp": 0, "scan_cigar_dp": 0, "scan_cigar_dp_small": 0,
+            "run_walk": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_LOG = ""     # nvcc's -Xptxas -v output of the last build here
+_timed: list | None = None   # (entry, start, end) events under timed_launches
+
+_vp, _i = ct.c_void_p, ct.c_int
+_SIGNATURES = {
+    # nas D A logpen nl al prof out | n R RD AL go ge fs xdrop endb | stream
+    "mp_ext_dp": [_vp] * 8 + [_i] * 9 + [_vp],
+    # nas D A nl al prof tb hint score | n R RD W TR go ge fs | stream
+    "mp_scan_cigar": [_vp] * 9 + [_i] * 8 + [_vp],
+    # tb hint nl al states counts fi fj | n TR W rounds | stream
+    "mp_run_walk": [_vp] * 8 + [_i] * 4 + [_vp],
+}
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_gpu_backend() -> bool:
+    """True when a CUDA card of compute capability >= (9, 0) is visible."""
+    return (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(0) >= (9, 0))
+
+
+def default_device() -> torch.device:
+    """The device entry points use unless the caller names one."""
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point's ``device`` argument; asking for
+    the card without an sm_90 card raises (never a silent CPU run)."""
+    dev = default_device() if device is None else torch.device(device)
+    if dev.type == "cuda" and not on_gpu_backend():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA card of compute capability >= 9.0 "
+            "(Hopper); pass device='cpu' for the plain PyTorch kernels")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def build(force: bool = False) -> str:
+    """Compile the kernel library if it is missing or stale; returns its
+    path.  Concurrent builds serialize on a lock file."""
+    global BUILD_LOG
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    srcs = _sources()
+    with open(os.path.join(BUILD_DIR, "kernels.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        newest = max(os.path.getmtime(s) for s in srcs)
+        if (not force and os.path.exists(SO)
+                and os.path.getmtime(SO) >= newest):
+            return SO
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}"
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3]
+                             + f".{tag}.o") for s in cus]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", _CSRC, "-c", s, "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(cus, objs)]
+        logs, failed = [], []
+        for s, p in zip(cus, procs):
+            out, _ = p.communicate()
+            logs.append(f"== {os.path.basename(s)}\n{out}")
+            if p.returncode != 0:
+                failed.append(os.path.basename(s))
+        BUILD_LOG = "".join(logs)
+        tmp = f"{SO}.{tag}.tmp"
+        try:
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+            r = subprocess.run([nvcc, "-gencode",
+                                "arch=compute_90a,code=sm_90a", "-shared",
+                                *objs, "-o", tmp],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{r.stdout}{r.stderr}")
+            os.replace(tmp, SO)
+        finally:
+            for f in objs + [tmp]:
+                if os.path.exists(f):
+                    os.unlink(f)
+    return SO
+
+
+def lib():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            so = ct.CDLL(build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = args
+                fn.restype = ct.c_int
+            _lib = so
+    return _lib
+
+
+def call(entry: str, *args) -> None:
+    """Launch C entry point ``entry`` of the kernel library; raise when
+    it reports a CUDA error."""
+    fn = getattr(lib(), entry)
+    if len(args) != len(fn.argtypes):
+        # ctypes would pass surplus arguments unconverted
+        raise TypeError(f"{entry}: {len(args)} arguments, the C entry "
+                        f"takes {len(fn.argtypes)}")
+    if _timed is None:
+        code = fn(*args)
+    else:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        code = fn(*args)
+        t1.record()
+        _timed.append((entry, t0, t1))
+    if code != 0:
+        raise RuntimeError(f"{entry}: CUDA error {code} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Bracket every kernel launch inside the block with CUDA events on
+    the current stream.  Yields a dict that, on leaving the block, holds
+    the summed device ms per C entry point."""
+    global _timed
+    events: list = []
+    totals: dict = {}
+    _timed = events
+    try:
+        yield totals
+    finally:
+        _timed = None
+        if events:
+            torch.cuda.synchronize()
+        for entry, t0, t1 in events:
+            totals[entry] = totals.get(entry, 0.0) + t0.elapsed_time(t1)
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, dtype, ndim: int, name: str) -> None:
+    """Wrapper-side argument check for a kernel input on the card."""
+    if not t.is_cuda or t.dtype != dtype or t.dim() != ndim \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous CUDA {dtype} "
+                         f"tensor of rank {ndim}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")

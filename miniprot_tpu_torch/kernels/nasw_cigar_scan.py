@@ -1,0 +1,487 @@
+"""Full CIGAR DP with traceback words (K2) and its run-walk (K3), with
+their plain PyTorch versions.  Counterpart of
+miniprot_tpu/kernels/nasw_cigar_scan.py.
+
+The DP is the reference's saturating-int16 ns_global_gs16b with
+NS_F_CIGAR (nasw-sse.c:444-541).  The traceback words are rebuilt from
+two prefix quantities per genome row instead of the reference's striped
+lazy-F loop, exactly as the JAX scan kernel does (its module docstring
+holds the proof; it needs go >= 1):
+
+  base_q  = max of the order-free candidates (match, D, A, B, C, fs1..4)
+  Iused_q = the I chain inside q's stripe segment (segments of
+            slen_p = ceil(al_p / 8) positions)   -> state nibble, bit 4
+  Istar_q = the I chain over all p < q (lazy-F fixpoint) -> bit 9, H
+
+plus run-length hints (how many more steps the walk takes in the same
+state from each cell), so the walk consumes a whole gap or match run in
+one round.
+
+Per-problem results do not depend on how problems are batched, so the
+port picks its own geometry: problem-major arrays, one CUDA block per
+problem, tb/hint planes (n, rows, W) int16 per problem.  The TPU's
+128-lane tiles and the 4-way interleave of its al <= 32 class are not
+carried over; the small class is simply W = 32 with 512 problems per
+launch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import tables as _tables
+from . import LAUNCHES, call, require, stream_ptr
+from .nasw_ext import _prep_seq_device, _upload
+
+NEG16 = -32768           # int16 saturation floor
+NEGI = -(1 << 29)        # scan identity (below any clipped int16 value)
+VL = 8                   # reference SSE lanes per stripe
+B = 128                  # problems per batch (big classes)
+SMALL_W = 32             # the al <= 32 class
+SMALL_CAPACITY = 512
+# class widths K2 is built for (scan_cigar.cu's launch switch): the
+# engine's CIG_SLEN_CLASSES times 8
+SCAN_WIDTHS = (32, 128, 512)
+
+# per-state step deltas for a run of e emits (nasw_cigar_pallas
+# _BT_DI/_BT_DJ): di = e*DIM[s] + DIC[s], dj = e*DJM[s] + DJC[s]
+_DIM = (3, 0, 3, 1, 1, 1, 0, 0, 0, 0)
+_DIC = (0, 0, 0, 0, 0, 0, 1, 2, 1, 2)
+_DJM = (1, 1, 0, 0, 0, 0, 0, 0, 0, 0)
+_DJC = (0, 0, 0, 0, 1, 1, 0, 0, 1, 1)
+
+
+def _rounds_cap() -> int:
+    """Walk-round budget.  Every round consumes a whole run, so real
+    paths take O(#segments) rounds; a lane still unfinished at the cap
+    comes back as None from collect and the engine redoes it on the
+    host engine (identical result)."""
+    return 2048
+
+
+def _sat(x):
+    return torch.clamp(x, -32768, 32767)
+
+
+def _pad_rows(nl_pad: int) -> int:
+    """A batch's row count: nl_pad rounded up to a multiple of 256."""
+    return ((nl_pad + 255) // 256) * 256
+
+
+# ---------------------------------------------------------------------------
+# K2: the scan CIGAR DP
+# ---------------------------------------------------------------------------
+
+
+def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
+    """Traceback words, run-length hints and end scores for n problems.
+
+    nas (n, R) int8; D, A (n, R+8) int32 tracks (donor folded with io);
+    nlv, alv (n,) int32; prof (n, 22, W) int8; opts = (go, ge, fs) with
+    go >= 1; rows = the tb rows to allocate (>= max nl, <= R).
+    Returns tb, hint (n, rows, W) int16 (rows [2, nl_b) of problem b are
+    defined; the walk reads nothing else) and score (n,) int32.
+    CUDA tensors launch K2; CPU tensors run scan_cigar_dp_plain.
+    """
+    go = int(opts[0])
+    if go < 1:
+        raise ValueError("scan CIGAR DP needs go >= 1 (the scan/striped "
+                         "equivalence proof; go == 0 jobs go to the host)")
+    if not nas.is_cuda:
+        return scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows)
+    n, R = nas.shape
+    W = prof.shape[2]
+    if W not in SCAN_WIDTHS:
+        raise ValueError(f"scan_cigar_dp: unsupported W={W}")
+    require(nas, torch.int8, 2, "nas")
+    require(D, torch.int32, 2, "D")
+    require(A, torch.int32, 2, "A")
+    require(nlv, torch.int32, 1, "nlv")
+    require(alv, torch.int32, 1, "alv")
+    require(prof, torch.int8, 3, "prof")
+    if D.shape != (n, R + 8) or A.shape != (n, R + 8) \
+            or prof.shape[:2] != (n, 22) or rows > R:
+        raise ValueError("scan_cigar_dp: inconsistent shapes")
+    dev = nas.device
+    tb = torch.empty((n, rows, W), dtype=torch.int16, device=dev)
+    hint = torch.empty((n, rows, W), dtype=torch.int16, device=dev)
+    score = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return tb, hint, score
+    call("mp_scan_cigar",
+         nas.data_ptr(), D.data_ptr(), A.data_ptr(), nlv.data_ptr(),
+         alv.data_ptr(), prof.data_ptr(), tb.data_ptr(), hint.data_ptr(),
+         score.data_ptr(), n, R, R + 8, W, rows, go, int(opts[1]),
+         int(opts[2]), stream_ptr(nas))
+    LAUNCHES["scan_cigar_dp_small" if W <= SMALL_W else "scan_cigar_dp"] += 1
+    return tb, hint, score
+
+
+def scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows):
+    """Plain PyTorch version of K2 (same arguments and results): one
+    genome row per step over all problems and positions.  The segmented
+    I scan is one cummax over (segment id << 32 | value) keys; rows
+    outside [2, nl_b) are left 0."""
+    dev = nas.device
+    n, R = nas.shape
+    W = prof.shape[2]
+    go, ge, fs = (int(v) for v in opts)
+    i32, i64 = torch.int32, torch.int64
+    nlv = nlv.to(i32)
+    alv = alv.to(i32)
+    q = torch.arange(W, dtype=i32, device=dev).view(1, W)
+    qge = q * ge
+    qpad = q >= alv.view(n, 1)
+    slen = torch.clamp((alv + VL - 1) // VL, min=1).view(n, 1)
+    qmod = q % slen
+    seg0 = qmod == 0
+    segkey = (q // slen).to(i64) << 32
+    prof = prof.to(i32)
+    D = D.to(i32)
+    A = A.to(i32)
+    tb = torch.zeros((n, rows, W), dtype=torch.int16, device=dev)
+    hint = torch.zeros((n, rows, W), dtype=torch.int16, device=dev)
+    score = torch.full((n,), NEG16, dtype=i32, device=dev)
+
+    def full(v):
+        return torch.full((n, W), v, dtype=i32, device=dev)
+
+    H1, H2, H3 = full(NEG16), full(NEG16), full(NEG16)
+    D1, D2, D3 = full(NEG16), full(NEG16), full(NEG16)
+    Ac, Bc, Cc = full(NEG16), full(NEG16), full(NEG16)
+    C01, C02, C03 = full(0), full(0), full(0)      # match-run ring
+    CD1, CD2, CD3 = full(0), full(0), full(0)      # D-run ring
+    CA, CB, CC = full(0), full(0), full(0)
+    ar = torch.arange(n, device=dev)
+    last = (alv - 1).long()
+
+    def left(x, fill):
+        col = torch.full((n, 1), fill, dtype=i32, device=dev)
+        return torch.cat([col, x[:, :-1]], dim=1)
+
+    max_nl = min(int(nlv.max()) if n else 0, rows)
+    for i in range(2, max_nl):
+        c = nas[:, i].long()
+        S = torch.where(qpad, NEG16, prof[ar, c])
+        gei = torch.where(c == 20, fs, ge).to(i32).view(n, 1)
+        dm1, d0, dp1 = (D[:, i - 1:i], D[:, i:i + 1], D[:, i + 1:i + 2])
+        a0, am1, am2 = (A[:, i:i + 1], A[:, i - 1:i], A[:, i - 2:i - 1])
+        # the [-1] column: H(-1,-1)=0, H(0,-1)=H(1,-1)=-fs at row 2 only
+        first = i == 2
+        H3m1 = left(H3, 0 if first else NEG16)
+        H1m1 = left(H1, -fs if first else NEG16)
+        H2m1 = left(H2, -fs if first else NEG16)
+        match = _sat(H3m1 + S)
+        ud = _sat(H3 - go)
+        b5 = D3 > ud
+        Dn = _sat(torch.maximum(ud, D3) - gei)
+        ua = _sat(H1 - dm1)
+        b6 = Ac > ua
+        Ac = torch.maximum(ua, Ac)
+        cA = _sat(Ac - a0)
+        ub = _sat(H1m1 - d0)
+        b7 = Bc > ub
+        Bc = torch.maximum(ub, Bc)
+        cB = _sat(Bc - am2)
+        uc = _sat(H1m1 - dp1)
+        b8 = Cc > uc
+        Cc = torch.maximum(uc, Cc)
+        cC = _sat(Cc - am1)
+        f1, f2, f3, f4 = (_sat(H1 - fs), _sat(H2 - fs), _sat(H1m1 - fs),
+                          _sat(H2m1 - fs))
+        base = match
+        for x in (Dn, cA, cB, cC, f1, f2, f3, f4):
+            base = torch.maximum(base, x)
+        # the two I scans
+        u = _sat(base - go) + qge
+        SM = torch.cummax(segkey + (u.to(i64) + (1 << 31)), dim=1).values
+        SM = (SM - segkey - (1 << 31)).to(i32)
+        Iused = torch.maximum(torch.where(seg0, NEGI, left(SM, NEGI)) - qge,
+                              torch.tensor(NEG16, dtype=i32, device=dev))
+        FM = torch.cummax(u, dim=1).values
+        Istar = torch.clamp(left(FM, NEGI) - qge, min=NEG16)
+        hp1 = torch.maximum(base, Iused)
+        Hfin = torch.maximum(base, Istar)
+        b9 = Istar > hp1
+        t4 = _sat(hp1 - go)
+        b4 = ~seg0 & (left(Iused, NEGI) > left(t4, 0))
+        # pass-1 state nibble: strict-> priority chain
+        h = match
+        y = torch.where(Iused > h, 1, 0).to(i32)
+        h = torch.maximum(h, Iused)
+        for cand, code in ((Dn, 2), (cA, 3), (cB, 4), (cC, 5),
+                           (f1, 6), (f2, 7), (f3, 8), (f4, 9)):
+            y = torch.where(cand > h, code, y)
+            h = torch.maximum(h, cand)
+        s0 = torch.where(b9, 1, y)
+        word = (s0 | (b4.to(i32) << 4) | (b5.to(i32) << 5)
+                | (b6.to(i32) << 6) | (b7.to(i32) << 7)
+                | (b8.to(i32) << 8) | (b9.to(i32) << 9))
+        tb[:, i] = word.to(torch.int16)
+        # run-length hints (an I run never crosses a segment start)
+        cnt1 = q - torch.cummax(torch.where(b4, -1, q.expand(n, W)),
+                                dim=1).values
+        cntD = torch.where(b5, CD3 + 1, 0)
+        CA = torch.where(b6, CA + 1, 0)
+        CB = torch.where(b7, CB + 1, 0)
+        CC = torch.where(b8, CC + 1, 0)
+        fin0 = s0 == 0
+        cnt0 = torch.where(fin0, left(C03, 0) + 1, 0)
+        hv = torch.where(fin0, cnt0 - 1, 0)
+        hv = torch.where(s0 == 1, cnt1, hv)
+        hv = torch.where(s0 == 2, cntD, hv)
+        hv = torch.where(s0 == 3, CA, hv)
+        hv = torch.where(s0 == 4, CB, hv)
+        hv = torch.where(s0 == 5, CC, hv)
+        hint[:, i] = hv.to(torch.int16)
+        score = torch.where(nlv - 1 == i, Hfin[ar, last], score)
+        H3, H2, H1 = H2, H1, Hfin
+        D3, D2, D1 = D2, D1, Dn
+        C03, C02, C01 = C02, C01, cnt0
+        CD3, CD2, CD1 = CD2, CD1, cntD
+    # rows past a problem's own nl were computed for the batch only
+    valid = valid_rows(nlv, rows)
+    tb = torch.where(valid, tb, 0)
+    hint = torch.where(valid, hint, 0)
+    return tb, hint, score
+
+
+def valid_rows(nlv, rows):
+    """(n, rows, 1) mask of the tb rows a problem defines: [2, nl)."""
+    r = torch.arange(rows, device=nlv.device).view(1, rows, 1)
+    return (r >= 2) & (r < nlv.view(-1, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# K3: the run-walk
+# ---------------------------------------------------------------------------
+
+
+def run_walk(tb, hint, nlv, alv, rounds):
+    """Follow each problem's traceback from (nl-1, al-1), one whole run
+    per round: read (word, hint) at (i, j), emit (state, count), step by
+    count cells.  Returns states (n, rounds) int8 (15 = padding),
+    counts (n, rounds) int16 (uint16 payload), i_final, j_final (n,)
+    int32; a problem with i_final >= 2 and j_final >= 0 hit the round
+    cap.  CUDA tensors launch K3; CPU tensors run run_walk_plain."""
+    if not tb.is_cuda:
+        return run_walk_plain(tb, hint, nlv, alv, rounds)
+    require(tb, torch.int16, 3, "tb")
+    require(hint, torch.int16, 3, "hint")
+    require(nlv, torch.int32, 1, "nlv")
+    require(alv, torch.int32, 1, "alv")
+    n, TR, W = tb.shape
+    if hint.shape != tb.shape:
+        raise ValueError("run_walk: tb/hint shapes differ")
+    dev = tb.device
+    states = torch.empty((n, rounds), dtype=torch.int8, device=dev)
+    counts = torch.empty((n, rounds), dtype=torch.int16, device=dev)
+    fi = torch.empty(n, dtype=torch.int32, device=dev)
+    fj = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return states, counts, fi, fj
+    call("mp_run_walk",
+         tb.data_ptr(), hint.data_ptr(), nlv.data_ptr(), alv.data_ptr(),
+         states.data_ptr(), counts.data_ptr(), fi.data_ptr(), fj.data_ptr(),
+         n, TR, W, rounds, stream_ptr(tb))
+    LAUNCHES["run_walk"] += 1
+    return states, counts, fi, fj
+
+
+def run_walk_plain(tb, hint, nlv, alv, rounds):
+    """Plain PyTorch version of K3 (a port of the JAX _run_backtrack
+    while_loop): all problems advance one round per step."""
+    dev = tb.device
+    n, TR, W = tb.shape
+    i64 = torch.int64
+    pad = (0,) * 6
+    dim, dic, djm, djc = (torch.tensor(t + pad, dtype=i64, device=dev)
+                          for t in (_DIM, _DIC, _DJM, _DJC))
+    i = nlv.to(i64) - 1
+    j = alv.to(i64) - 1
+    states = torch.full((n, rounds), 15, dtype=torch.int8, device=dev)
+    counts = torch.zeros((n, rounds), dtype=torch.int16, device=dev)
+    tbf = tb.reshape(-1)
+    hf = hint.reshape(-1)
+    base = torch.arange(n, dtype=i64, device=dev) * (TR * W)
+    for k in range(rounds):
+        active = (i >= 2) & (j >= 0)
+        if not bool(active.any()):
+            break
+        idx = base + i.clamp(0, TR - 1) * W + j.clamp(0, W - 1)
+        s = tbf[idx].to(i64) & 0xF
+        e = (hf[idx].to(i64) & 0xFFFF) + 1
+        states[:, k] = torch.where(active, s, 15).to(torch.int8)
+        counts[:, k] = torch.where(active, e, 0).to(torch.int32).to(
+            torch.int16)
+        i = torch.where(active, i - (e * dim[s] + dic[s]), i)
+        j = torch.where(active, j - (e * djm[s] + djc[s]), j)
+    return states, counts, i.to(torch.int32), j.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Batches
+# ---------------------------------------------------------------------------
+
+
+class _ScanBatch:
+    """Shared part of the scan batch classes: the query profile, the
+    per-problem lengths, the launch of K2 + K3 and the decode."""
+
+    CAPACITY = B
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, device="cpu",
+                 capacity=None):
+        self.al = al_pad                     # W, the class width
+        self.nl = _pad_rows(nl_pad)
+        (self.go, self.ge, self.fs, self.default_io, self.xdrop,
+         self.end_bonus, self.ie_coef) = opt_scalars
+        self.mat = np.asarray(mat).reshape(22, 22)
+        self.device = torch.device(device)
+        self.capacity = capacity or self.CAPACITY
+        cap = self.capacity
+        self.prof = np.zeros((cap, 22, self.al), np.int8)
+        self.alv = np.ones(cap, np.int32)
+        self.nlv = np.zeros(cap, np.int32)
+        self.dims = []
+        self.n = 0
+
+    @classmethod
+    def planes_bytes(cls, nl_pad, W, capacity=None) -> int:
+        """Device bytes of a full batch's traceback planes: the tb plane
+        plus the run-length hint plane, int16 each (twice the striped
+        kernel's tb-only formula)."""
+        return 2 * 2 * _pad_rows(nl_pad) * W * (capacity or cls.CAPACITY)
+
+    def tb_bytes(self) -> int:
+        return self.planes_bytes(self.nl, self.al, self.capacity)
+
+    def _add_query(self, aas, b, nl):
+        assert self.go >= 1, "go==0 breaks scan/striped equivalence; " \
+            "route the job to the host engine"
+        al = len(aas)
+        assert nl <= self.nl and al <= self.al and b < self.capacity
+        self.prof[b, :, :al] = self.mat[:, aas]
+        self.alv[b] = al
+        self.nlv[b] = nl
+        self.dims.append((nl, al))
+        self.n += 1
+
+    def _rows_used(self):
+        max_nl = max((nl for nl, _ in self.dims), default=self.nl)
+        rows_used = 2048
+        while rows_used < max_nl:
+            rows_used <<= 1
+        return min(self.nl, rows_used)
+
+    def rounds(self) -> int:
+        return min(self._rows_used() + self.al + 2, _rounds_cap())
+
+    def _rows(self) -> int:
+        return max(3, max((nl for nl, _ in self.dims), default=3))
+
+    def _launch_tracks(self, nas, D, A):
+        """K2 then K3 on uploaded tracks; returns the device handles."""
+        n, dev = self.n, self.device
+        nlv = _upload(self.nlv[:n], dev)
+        alv = _upload(self.alv[:n], dev)
+        rows = self._rows()
+        tb, hint, score = scan_cigar_dp(
+            nas, D, A, nlv, alv, _upload(self.prof[:n], dev),
+            (self.go, self.ge, self.fs), rows)
+        states, counts, fi, fj = run_walk(tb, hint, nlv, alv, self.rounds())
+        return states, counts, fi, fj, score
+
+    def collect(self, handles):
+        from .. import native
+        states, counts, fi, fj, score = (t.cpu().numpy() for t in handles)
+        counts = counts.view(np.uint16)
+        out = []
+        for b in range(self.n):
+            if fi[b] >= 2 and fj[b] >= 0:
+                # the walk hit its round cap with this problem unfinished
+                out.append(None)
+                continue
+            # expand (state, count) runs; padding rounds carry count 0
+            exp = np.repeat(states[b], counts[b]).astype(np.uint8)
+            out.append((int(score[b]),
+                        native.cigar_from_states(exp, int(fi[b]),
+                                                 int(fj[b]))))
+        return out
+
+    def run(self):
+        return self.collect(self.launch())
+
+
+class ScanCigarBatch(_ScanBatch):
+    """Scan CIGAR problems with host-prepped tracks (--spsc jobs)."""
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, **kw):
+        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
+        cap = self.capacity
+        self.nas = np.zeros((cap, self.nl), np.int8)
+        self.D = np.zeros((cap, self.nl + 8), np.int16)
+        self.A = np.zeros((cap, self.nl + 8), np.int16)
+
+    def add(self, nas, aas, donor, acceptor, io=None):
+        b = self.n
+        io = self.default_io if io is None else io
+        nl = len(nas)
+        self._add_query(aas, b, nl)
+        self.nas[b, :nl] = nas
+        self.D[b, :nl + 1] = donor.astype(np.int32)[:nl + 1] + io
+        self.A[b, :nl + 1] = acceptor.astype(np.int32)[:nl + 1]
+        return b
+
+    def launch(self):
+        n, dev, R = self.n, self.device, self._rows()
+        i32 = torch.int32
+        return self._launch_tracks(
+            _upload(self.nas[:n, :R], dev),
+            _upload(self.D[:n, :R + 8], dev).to(i32),
+            _upload(self.A[:n, :R + 8], dev).to(i32))
+
+
+class RawScanCigarBatch(_ScanBatch):
+    """Scan CIGAR problems shipped as raw nt4 windows (device prep).
+    CIGAR jobs here are forward-strand and carry no --spsc track, so the
+    folded donor stream is non-negative by construction."""
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, sp,
+                 trans_code: int = 1, **kw):
+        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
+        self.sp = np.asarray(sp, np.int32).reshape(-1)
+        self.trans_code = trans_code
+        self.nt = np.zeros((self.capacity, self.nl + 8), np.int8)
+        self.iov = np.zeros(self.capacity, np.int32)
+
+    def add_raw(self, nt4: np.ndarray, aas: np.ndarray, io=None):
+        b = self.n
+        io = self.default_io if io is None else io
+        nl = len(nt4)
+        self._add_query(aas, b, nl)
+        self.nt[b, :nl] = nt4
+        self.iov[b] = io
+        return b
+
+    def launch(self):
+        n, dev, R = self.n, self.device, self._rows()
+        nas, D, A = _prep_seq_device(
+            _upload(self.nt[:n, :R + 8], dev),
+            torch.zeros(n, dtype=torch.int8, device=dev),
+            _upload(self.iov[:n], dev), _upload(self.nlv[:n], dev),
+            sp=self.sp, codon=_tables.get_tables(self.trans_code).codon,
+            n_rows=R)
+        return self._launch_tracks(nas, D, A)
+
+
+class SmallScanCigarBatch(RawScanCigarBatch):
+    """The al <= 32 class: W = 32 (one warp per problem on the card),
+    up to 512 problems per launch."""
+
+    CAPACITY = SMALL_CAPACITY
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, **kw):
+        assert al_pad <= SMALL_W
+        super().__init__(SMALL_W, nl_pad, mat, opt_scalars, **kw)

@@ -1,0 +1,257 @@
+"""Batched mapping pipeline with ordered output.
+
+The reference's 3-step read/map/write pipeline (map.c:242-343, kthread.c)
+maps to a batch loop here:
+
+  read  -> up to mini_batch_size residues of queries per mini-batch
+  map   -> data-parallel across a fork-based process pool (the kt_for
+           analog); with a device engine, the alignment DPs of the whole
+           mini-batch are batched onto the CUDA kernels (or, with
+           device="cpu", their plain PyTorch versions)
+  write -> input-order emit with the per-query best-score/coverage
+           output filters
+
+Output is byte-identical across (n_threads, device) settings.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+from .align import DpEnv
+from .bseq import BatchReader
+from .format import write_output
+from .index import Index
+from .mapper import map_query
+from .options import F_GFF, MapOpt
+
+# worker-process state, inherited via fork
+_W: dict = {}
+
+
+def _emit_query(mi: Index, opt: MapOpt, name: str, seq: np.ndarray, regs,
+                id_counter: list[int], out) -> None:
+    """Per-query ordered emit with output filters (map.c:297-313)."""
+    best_sc = -1
+    if regs:
+        r0 = regs[0]
+        best_sc = r0.p.dp_max if r0.p is not None else r0.chn_sc
+    n_out = 0
+    for j, r in enumerate(regs):
+        if j >= opt.out_n:
+            break
+        sc = r.p.dp_max if r.p is not None else r.chn_sc
+        if sc <= 0 or sc < float(best_sc) * opt.out_sim:
+            continue
+        if r.qe - r.qs < float(len(seq)) * opt.out_cov:
+            continue
+        id_counter[0] += 1
+        out.write(write_output(mi, opt, name, seq, r, id_counter[0], j + 1))
+        n_out += 1
+    if n_out == 0:
+        out.write(write_output(mi, opt, name, seq, None, 0, 0))
+
+
+def _worker_map(seq_bytes: bytes):
+    seq = np.frombuffer(seq_bytes, dtype=np.uint8)
+    return map_query(_W["mi"], seq, _W["opt"], env=_W["env"])
+
+
+def _worker_pre_align(seq_bytes: bytes):
+    from .mapper import pre_align
+    seq = np.frombuffer(seq_bytes, dtype=np.uint8)
+    return pre_align(_W["mi"], seq, _W["opt"])
+
+
+def _make_pool(mi: Index, opt: MapOpt, n_workers: int):
+    import multiprocessing as mp
+    import warnings
+    _W["mi"] = mi
+    _W["opt"] = opt
+    _W["env"] = DpEnv(opt)
+    ctx = mp.get_context("fork")
+    with warnings.catch_warnings():
+        # fork after torch/BLAS threads exist: safe here because the map
+        # workers touch only numpy + libmpnative (no locks shared with
+        # those threads)
+        warnings.filterwarnings("ignore", message=".*fork.*")
+        return ctx.Pool(n_workers)
+
+
+class _Prefetcher:
+    """Read batch N+1 while batch N maps (the kt_pipeline analog,
+    kthread.c:97-159)."""
+
+    def __init__(self, reader: BatchReader, chunk_size: int):
+        import queue as _q
+        import threading
+        self._q: "_q.Queue" = _q.Queue(maxsize=1)
+
+        def run():
+            while True:
+                b = reader.read_batch(chunk_size)
+                self._q.put(b)
+                if not b:
+                    return
+
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def get(self):
+        return self._q.get()
+
+
+def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
+             out=None, device="cuda", dbg: dict | None = None,
+             ckpt: str | None = None, stats: dict | None = None) -> int:
+    """Map all queries in a FASTA/FASTQ file (mp_map_file, map.c:330-343).
+
+    device: "cuda" (the default) runs the alignment DPs on the CUDA
+    kernels and raises when no sm_90 card is there; "cpu" runs the same
+    engine on the kernels' plain PyTorch versions; None maps on the host
+    C engine only.
+
+    ckpt: path of a mini-batch checkpoint journal (requires a seekable
+    `out`).  Mini-batches are idempotent work units (the reference's
+    kt_pipeline structure, kthread.c:97-159, has the same property);
+    after each batch the journal records (batch, n_mapped, id_counter,
+    byte offset).  On restart the output is truncated to the last
+    complete batch and mapping resumes at the next one, producing
+    byte-identical output to an uninterrupted run."""
+    out = out or sys.stdout
+    dbg = dbg or {}
+    reader = BatchReader(fn)
+    env = DpEnv(opt)
+    id_counter = [0]
+    done_batches = -1
+    ckpt_f = None
+    if ckpt is not None:
+        if os.path.exists(ckpt):
+            with open(ckpt) as f:
+                lines = [ln for ln in f.read().splitlines()
+                         if ln.count("\t") == 3]
+            if lines:
+                b, nm, idc, off = lines[-1].split("\t")
+                done_batches, id_counter[0] = int(b), int(idc)
+                out.seek(int(off))
+            else:
+                out.seek(0)  # crashed before the first journal entry
+            out.truncate()
+        ckpt_f = open(ckpt, "a")
+    if opt.flag & F_GFF and done_batches < 0:
+        out.write("##gff-version 3\n")
+    from .sysutil import profiler
+    profiler.start("map")
+    n_mapped = 0
+    engine = None
+    if device is not None:
+        from .device import GpuExtEngine
+        engine = GpuExtEngine(opt, device)
+    n_workers = max(1, min(n_threads, os.cpu_count() or 1))
+    pool = _make_pool(mi, opt, n_workers) if n_workers > 1 else None
+    pre = _Prefetcher(reader, opt.mini_batch_size)
+    try:
+        batch_idx = -1
+        while True:
+            batch = pre.get()
+            if not batch:
+                break
+            batch_idx += 1
+            if batch_idx <= done_batches:
+                n_mapped += len(batch)  # already emitted by a prior run
+                continue
+            if engine is not None:
+                _map_batch_gpu(mi, opt, env, engine, batch, id_counter, out, pool)
+            elif pool is not None:
+                results = pool.map(_worker_map, [r.seq for r in batch],
+                                   chunksize=max(1, len(batch) // (n_workers * 8)))
+                for rec, regs in zip(batch, results):
+                    seq = np.frombuffer(rec.seq, dtype=np.uint8)
+                    _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
+            else:
+                for rec in batch:
+                    if dbg.get("qname"):
+                        sys.stderr.write(f"QR\t{rec.name}\t{len(rec.seq)}\t0\n")
+                    seq = np.frombuffer(rec.seq, dtype=np.uint8)
+                    regs = map_query(mi, seq, opt, env=env, dbg=dbg)
+                    _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
+            n_mapped += len(batch)
+            if ckpt_f is not None:
+                out.flush()
+                ckpt_f.write(f"{batch_idx}\t{n_mapped}\t{id_counter[0]}\t"
+                             f"{out.tell()}\n")
+                ckpt_f.flush()
+            from . import sysutil
+            sysutil.log("map_file", "mapped %d sequences", len(batch))
+    finally:
+        profiler.stop("map")
+        if engine is not None:
+            from . import sysutil
+            sysutil.log(
+                "map_file",
+                "DP split: %d device / %d host calls; %.1f%% of cells on "
+                "device (%s)", engine.n_device, engine.n_host,
+                100.0 * profiler.device_fraction(), engine.device)
+            if stats is not None:
+                stats.update(n_device=engine.n_device, n_host=engine.n_host,
+                             device_fraction=profiler.device_fraction(),
+                             batches=dict(engine.batches),
+                             bucket_batches=dict(engine.bucket_batches),
+                             peak_pending_tb=engine.peak_pending_tb)
+        if ckpt_f is not None:
+            ckpt_f.close()
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    return n_mapped
+
+
+def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
+                  pool=None) -> list:
+    """Map one mini-batch with device-batched alignment DPs; returns
+    [(rec, seq, final_regs), ...] in batch order (port of
+    miniprot_tpu.pipeline.map_batch_tpu).
+
+    Seed/chain/refine (pre_align) run for the whole mini-batch first (on
+    the pool when there is one); then every region's alignment generator
+    advances in lockstep through the engine, one flush round per step.
+    A generator's results do not depend on which round it joins (the
+    per-problem DP is exact whatever the batch), so the output is
+    byte-identical to the host engine's."""
+    from .align import align_region_steps
+    from .device import pump_align_generators
+    from .mapper import finish_align, pre_align
+    from .sysutil import profiler
+
+    profiler.start("pre_align")
+    if pool is not None:
+        pre = pool.map(_worker_pre_align, [r.seq for r in batch],
+                       chunksize=max(1, len(batch) // 32))
+    else:
+        pre = [pre_align(mi, np.frombuffer(r.seq, np.uint8), opt)
+               for r in batch]
+    profiler.stop("pre_align")
+    profiler.start("align_rounds")
+    per_query: list = []
+    gens: list = []
+    for rec, (regs, ext) in zip(batch, pre):
+        seq = np.frombuffer(rec.seq, dtype=np.uint8)
+        per_query.append((rec, seq, regs))
+        gens.extend(align_region_steps(env, opt, mi, len(seq), seq, r, el, er)
+                    for r, (el, er) in zip(regs, ext))
+    pump_align_generators(gens, engine)
+    profiler.stop("align_rounds")
+    profiler.start("finish_align")
+    done = [(rec, seq, finish_align(mi, opt, regs))
+            for rec, seq, regs in per_query]
+    profiler.stop("finish_align")
+    return done
+
+
+def _map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
+                   id_counter, out, pool=None) -> None:
+    for rec, seq, regs in map_batch_gpu(mi, opt, env, engine, batch, pool):
+        _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)

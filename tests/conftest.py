@@ -58,3 +58,9 @@ def ref_binary():
         "make -C /tmp/refbuild -j8 >/dev/null 2>&1",
         shell=True, check=True)
     return str(REF_BIN)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card of compute capability >= 9.0 "
+        "(skips elsewhere)")
