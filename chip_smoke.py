@@ -10,14 +10,21 @@ the card and on the host engine and requires byte-identical output.
 Phases (any failure exits non-zero and prints no result):
   1. the card: nvidia-smi name and power limit; CUDA and sm_90 required
   2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines
-  3. kernels: K1 ext_dp (al 128/512/1024), K2 scan_cigar_dp (al<=512
-     and al<=32 classes),
-     K3 run_walk — exact equality with the plain versions on the card
-     and with native.dp16 per problem; time, cells, GCUPS, bound
+  3. kernels: K1 ext_dp (al 128/512/1024, and at go 0), K2
+     scan_cigar_dp (al<=512 and al<=32 classes), K3 run_walk, K4
+     striped_cigar_dp (W 128/512/32, one at go 0) and its int32 form
+     striped_cigar_dp32 (scores past 32767), K5 cell_walk, K6
+     sketch_orf — exact equality with the
+     plain versions on the card and with the host engine (native.dp16 /
+     dp32 / sketch_nt4); time, cells, GCUPS, bound
   4. end to end: testgen's 200 Mb x 2000-protein workload mapped with
      the GPU engine and the host engine, byte-identical, device cell
-     fraction >= 0.90, every kernel launched on that run; the kernels'
-     device time on that run (CUDA events around each launch)
+     fraction >= 0.90, every kernel of the path launched; then the GPU
+     map on the striped route (MINIPROT_TPU_CIG_IMPL=striped) against
+     the same host output, the -O 0 map on both engines, and the index
+     built with the device sketch against the host index.  Each run
+     sets the launch counts to 0 just before it and reads them after;
+     the kernels' device time per run (CUDA events around each launch)
   5. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
@@ -53,7 +60,21 @@ INT16_OPS_PER_S = 4 * INT32_OPS_PER_S
 # ext_fits_int16), so both are held to the int16 rate.
 K1_OPS_PER_CELL = 32
 K2_OPS_PER_CELL = 64
+# K4 (the striped form of the same NS_F_CIGAR loop) is held to K2's 64,
+# at the int16 rate for B4 and the int32 rate for B4'.  K6 per codon
+# slot: 3 base tests, codon index 4, table lookups 2, sense 1, run
+# bookkeeping 4, k-mer roll 3, hash 13, keep test 2 = 32.
+SKETCH_OPS_PER_SLOT = 32
+# the device prep of a raw ext batch (_prep_seq_device + _logpen_device)
+# per genome row of a problem: ~160 int32 compares, selects, shifts and
+# adds for the codon, the two donor and two acceptor tracks, the folds
+# and the log-penalty search; it reads the nt4 row (1 byte) and writes
+# nas (1), D and A (4 + 4) and the log-penalty row (4)
+PREP_OPS_PER_ROW = 160
 SRC = "miniprot_tpu_torch/kernels/csrc/"
+# contigs of the e2e workload: each is genome_mb / N_CTG long, the
+# strand length the device sketch sees
+N_CTG = 4
 
 
 def fail(msg: str) -> None:
@@ -100,16 +121,17 @@ def scoring():
     return opt, env, scal, T, kw
 
 
-def homolog(rng, T, al, nl):
+def homolog(rng, T, al, nl, mut_rate=0.1):
     """(nsq, asq): a protein and a genome window that spells it in
-    codons with 10% substituted codons, followed by random sequence."""
+    codons with mut_rate substituted codons, followed by random
+    sequence."""
     import numpy as np
     asq = rng.choice(np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8), al)
     rev = np.full(22, -1, np.int64)
     for c in range(63, -1, -1):
         rev[T.codon[c]] = c
     cod = rev[T.aa20[asq]]
-    mut = rng.random(al) < 0.1
+    mut = rng.random(al) < mut_rate
     cod[mut] = rng.integers(0, 64, int(mut.sum()))
     nt4 = np.stack([(cod >> 4) & 3, (cod >> 2) & 3, cod & 3], 1).reshape(-1)
     tail = rng.integers(0, 4, max(0, nl - len(nt4)))
@@ -117,7 +139,8 @@ def homolog(rng, T, al, nl):
     return np.frombuffer(b"ACGT", np.uint8)[nt4].copy(), asq.copy()
 
 
-def phase_ext(al_pad, nl_pad, n, seed):
+def phase_ext(al_pad, nl_pad, n, seed, go=None):
+    """K1 at one bucket; go=0 takes its 8-lane lazy-F form."""
     import numpy as np
     import torch
 
@@ -125,6 +148,10 @@ def phase_ext(al_pad, nl_pad, n, seed):
     from miniprot_tpu_torch.kernels import nasw_ext as ne
     from miniprot_tpu_torch.native import DPF_EXT_LEFT, DPF_EXT_RIGHT
     opt, env, scal, T, kw = scoring()
+    if go is not None:
+        scal = (go,) + scal[1:]
+        kw = dict(kw, go=go)
+    tag = f"al={al_pad},nl={nl_pad}" + ("" if go is None else f",go={go}")
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     batch = ne.RawExtBatch(al_pad, nl_pad, opt.mat, scal, sp=env.sp,
@@ -143,11 +170,15 @@ def phase_ext(al_pad, nl_pad, n, seed):
     thr = ne._logpen_thresholds(float(np.float32(opt.ie_coef)), batch.nl)
     als = ne._upload(batch.als[:n], dev)
     nlv = ne._upload(batch.nlv[:n], dev)
-    nas, D, A = ne._prep_seq_device(
-        ne._upload(batch.nt[:n], dev), ne._upload(batch.leftb[:n], dev),
-        ne._upload(batch.iov[:n], dev), nlv, sp=batch.sp, codon=T.codon,
-        n_rows=batch.nl)
-    logpen = ne._logpen_device(als, thr, batch.nl, dev)
+    raw = (ne._upload(batch.nt[:n], dev), ne._upload(batch.leftb[:n], dev),
+           ne._upload(batch.iov[:n], dev), nlv)
+
+    def prep():
+        return (*ne._prep_seq_device(*raw, sp=batch.sp, codon=T.codon,
+                                     n_rows=batch.nl),
+                ne._logpen_device(als, thr, batch.nl, dev))
+
+    nas, D, A, logpen = prep()
     args = (nas, D, A, logpen, nlv, als, ne._upload(batch.prof[:n], dev),
             ne._opts(batch))
     got = ne.ext_dp(*args)
@@ -157,26 +188,34 @@ def phase_ext(al_pad, nl_pad, n, seed):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     if not torch.equal(got, want):
-        fail(f"ext_dp al={al_pad} nl={nl_pad}: kernel != plain version")
+        fail(f"ext_dp {tag}: kernel != plain version")
     res = batch.collect(got)
     for (nsq, asq, left), r in zip(cases, res):
         ref = native.dp16(nsq, asq, flag=DPF_EXT_LEFT if left
                           else DPF_EXT_RIGHT, **kw)[:3]
         if tuple(ref) != r:
-            fail(f"ext_dp al={al_pad}: {r} != host engine {tuple(ref)}")
+            fail(f"ext_dp {tag}: {r} != host engine {tuple(ref)}")
     ms = time_ms(lambda: ne.ext_dp(*args), reps=10)
+    prep_ms = time_ms(prep, reps=5)
+    R = batch.nl
+    pbms, pby = bound(n * (R + 8) + n * R * (1 + 4) + 2 * n * (R + 8) * 4,
+                      n * R * PREP_OPS_PER_ROW, INT32_OPS_PER_S)
     row_sum = int(rows.sum())
     cells = row_sum * al_pad
     nbytes = row_sum * (1 + 4 + 4 + 4 + 4) + n * (22 * al_pad + 12)
     bms, by = bound(nbytes, cells * K1_OPS_PER_CELL, INT16_OPS_PER_S)
-    print(f"[K1 ext_dp] al={al_pad} nl={nl_pad} n={n}: exact vs plain and "
+    print(f"[K1 ext_dp] {tag} n={n}: exact vs plain and "
           f"host engine; {ms:.3f} ms, {cells} cells ({row_sum} rows run), "
           f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.1f} ms; "
-          f"bound {bms:.4f} ms ({by})", flush=True)
-    return dict(name=f"ext_dp[al={al_pad},nl={nl_pad}]", route="cuda",
+          f"bound {bms:.4f} ms ({by}); device prep of its tracks "
+          f"(_prep_seq_device + _logpen_device, torch ops) {prep_ms:.3f} ms, "
+          f"bound {pbms:.4f} ms ({pby})", flush=True)
+    return dict(name=f"ext_dp[{tag}]", route="cuda",
                 source=SRC + "ext_dp.cu",
                 replaces="miniprot_tpu/kernels/nasw_pallas.py:89",
-                counter="ext_dp", max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                counter="ext_dp",
+                paths=("default", "striped route") if go is None
+                else ("-O 0",), max_abs_err=0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -202,14 +241,8 @@ def phase_scan(W, nl_pad, n, seed):
         batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
         cases.append((nsq, asq))
     R = batch._rows()
-    nlv = ne._upload(batch.nlv[:n], dev)
-    alv = ne._upload(batch.alv[:n], dev)
-    nas, D, A = ne._prep_seq_device(
-        ne._upload(batch.nt[:n, :R + 8], dev),
-        torch.zeros(n, dtype=torch.int8, device=dev),
-        ne._upload(batch.iov[:n], dev), nlv, sp=batch.sp, codon=T.codon,
-        n_rows=R)
-    args = (nas, D, A, nlv, alv, ne._upload(batch.prof[:n], dev),
+    nlv, alv = batch._lens()
+    args = (*batch._tracks(), nlv, alv, ne._upload(batch.prof[:n], dev),
             (batch.go, batch.ge, batch.fs), R)
     tb, hint, score = sk.scan_cigar_dp(*args)
     torch.cuda.synchronize()
@@ -261,21 +294,305 @@ def phase_scan(W, nl_pad, n, seed):
     return [dict(name=f"{k2}[{tag}]", route="cuda",
                  source=SRC + "scan_cigar.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:111",
-                 counter=k2, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                 counter=k2, paths=("default",), max_abs_err=0, ms=ms,
+                 plain_ms=plain_ms,
                  bound_ms=bms, bound_by=by, library_ms=None),
             dict(name=f"run_walk[{tag}]", route="cuda",
                  source=SRC + "run_walk.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:458",
-                 counter="run_walk", max_abs_err=0, ms=walk_ms,
+                 counter="run_walk", paths=("default",), max_abs_err=0,
+                 ms=walk_ms,
                  plain_ms=walk_plain_ms, bound_ms=wbms, bound_by=wby,
                  library_ms=None)]
 
 
-def phase_e2e(genome_mb, n_prot, threads):
+def _striped_inputs(batch):
+    """K4's arguments as a batch launch builds them on its device."""
+    import torch
+
+    from miniprot_tpu_torch.kernels import nasw_ext as ne
+    n, dev = batch.n, batch.device
+    nlv, alv = batch._lens()
+    args = (*batch._tracks(), nlv, alv, ne._upload(batch.aas[:n], dev),
+            torch.from_numpy(batch.mat).to(dev),
+            (batch.go, batch.ge, batch.fs), batch._rows())
+    return args, nlv, alv
+
+
+def _striped_cells(batch, vl):
+    """(rows, cells) the striped DP computes for a batch: each problem's
+    rows 2..nl-1 times its own stripes x vl lanes."""
+    rows = sum(max(nl - 2, 0) for nl, _ in batch.dims)
+    cells = sum(max(nl - 2, 0) * -(-al // vl) * vl for nl, al in batch.dims)
+    return rows, cells
+
+
+def phase_striped(W, nl_pad, n, seed, go):
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch import native
+    from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
+    from miniprot_tpu_torch.native import DPF_CIGAR
+    opt, env, scal, T, kw = scoring()
+    scal = (go,) + scal[1:]
+    kw = dict(kw, go=go)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cls = st.SmallCigarBatch if W <= 32 else st.RawCigarBatch
+    batch = cls(W, nl_pad, opt.mat, scal, sp=env.sp, device=dev, capacity=n)
+    cases = []
+    al_lo = 1 if W <= 32 else W // 4 + 1
+    for _ in range(n):
+        al = int(rng.integers(al_lo, W + 1))
+        nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
+        nsq, asq = homolog(rng, T, al, nl)
+        batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
+        cases.append((nsq, asq))
+    args, nlv, alv = _striped_inputs(batch)
+    tb, score = st.striped_cigar_dp(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb_p, score_p = st.striped_cigar_dp_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    valid = st.valid_cells(nlv, alv, tb.shape[1], W)
+    if not (torch.equal(torch.where(valid, tb, 0), tb_p)
+            and torch.equal(score, score_p)):
+        fail(f"striped_cigar_dp W={W} nl={nl_pad} go={go}: kernel != plain")
+    steps = batch.steps()
+    walk = st.cell_walk(tb, nlv, alv, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk_p = st.cell_walk_plain(tb, nlv, alv, steps)
+    torch.cuda.synchronize()
+    walk_plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not all(torch.equal(a, b) for a, b in zip(walk, walk_p)):
+        fail(f"cell_walk W={W}: kernel != plain version")
+    for (nsq, asq), r in zip(cases, batch.collect((*walk, score))):
+        rsc, _, _, rcig = native.dp16(nsq, asq, flag=DPF_CIGAR, **kw)
+        if r[0] != rsc or not np.array_equal(r[1], rcig):
+            fail(f"striped_cigar_dp W={W} go={go}: result != host engine")
+    ms = time_ms(lambda: st.striped_cigar_dp(*args), reps=3)
+    walk_ms = time_ms(lambda: st.cell_walk(tb, nlv, alv, steps), reps=5)
+    rows, cells = _striped_cells(batch, st.VL)
+    nbytes = 2 * cells + rows * (1 + 8) + n * (W + 8) + 22 * 22
+    bms, by = bound(nbytes, cells * K2_OPS_PER_CELL, INT16_OPS_PER_S)
+    used = int((walk[0] != 15).sum())
+    wbms, wby = bound(used * 3 + n * 16, used * 12, INT32_OPS_PER_S)
+    tag = f"W={W},nl={nl_pad},go={go}"
+    paths = ("-O 0",) if go == 0 else ("striped route",)
+    print(f"[K4 striped_cigar_dp] {tag} n={n}: exact vs plain and host "
+          f"engine; {ms:.3f} ms, {cells} cells, {cells / ms / 1e6:.2f} "
+          f"GCUPS; plain {plain_ms:.1f} ms; bound {bms:.4f} ms ({by})",
+          flush=True)
+    print(f"[K5 cell_walk] {tag} n={n}: exact vs plain; {walk_ms:.3f} ms "
+          f"for {used} steps; plain {walk_plain_ms:.1f} ms; bound "
+          f"{wbms:.5f} ms ({wby})", flush=True)
+    return [dict(name=f"striped_cigar_dp[{tag}]", route="cuda",
+                 source=SRC + "striped_cigar.cu",
+                 replaces="miniprot_tpu/kernels/nasw_cigar_pallas.py:74",
+                 counter="striped_cigar_dp", paths=paths, max_abs_err=0,
+                 ms=ms,
+                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 library_ms=None),
+            dict(name=f"cell_walk[{tag}]", route="cuda",
+                 source=SRC + "cell_walk.cu",
+                 replaces="miniprot_tpu/kernels/nasw_cigar_pallas.py:421",
+                 counter="cell_walk", paths=paths, max_abs_err=0,
+                 ms=walk_ms,
+                 plain_ms=walk_plain_ms, bound_ms=wbms, bound_by=wby,
+                 library_ms=None)]
+
+
+def phase_dp32(W, nl_pad, n, seed):
+    """B4' (gs32b) on a matrix with 127 on the diagonal: homologs of
+    al > 258 score past the int16 range (an int8 matrix cannot get
+    there at al <= 128, hence W = 512).  Its launches are counted here:
+    the mapper never runs it."""
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch import kernels, native
+    from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
+    from miniprot_tpu_torch.kernels.nasw_ext import prep_problem
+    from miniprot_tpu_torch.native import DPF_CIGAR
+    opt, env, scal, T, kw = scoring()
+    hot = opt.mat.copy()
+    hot[np.arange(20), np.arange(20)] = 127
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    kernels.reset_launch_counts()
+    batch = st.Dp32Batch(W, nl_pad, hot, scal, device=dev, capacity=n)
+    cases = []
+    for k in range(n):
+        al = int(rng.integers(W // 2, W + 1))
+        nl = int(rng.integers(3 * al, nl_pad + 1))
+        nsq, asq = homolog(rng, T, al, nl, 0.0 if k % 4 == 0 else 0.1)
+        nas, aas, d, a = prep_problem(nsq, asq, sp=env.sp,
+                                      sp_null_bonus=opt.sp_null_bonus,
+                                      io=opt.io, ext_left=False)
+        batch.add(nas, aas, d, a, io=opt.io)
+        cases.append((nsq, asq))
+    args, nlv, alv = _striped_inputs(batch)
+    tb, score = st.striped_cigar_dp32(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb_p, score_p = st.striped_cigar_dp32_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    valid = st.valid_cells(nlv, alv, tb.shape[1], W, st.VL32)
+    if not (torch.equal(torch.where(valid, tb, 0), tb_p)
+            and torch.equal(score, score_p)):
+        fail(f"striped_cigar_dp32 W={W}: kernel != plain version")
+    res = batch.collect((tb, score))
+    for (nsq, asq), r in zip(cases, res):
+        rsc, rcig = native.dp32(nsq, asq, flag=DPF_CIGAR, mat=hot, nt4=T.nt4,
+                                aa20=T.aa20, codon=T.codon, sp=env.sp,
+                                sp_null_bonus=opt.sp_null_bonus, go=opt.go,
+                                ge=opt.ge, io=opt.io, fs=opt.fs)
+        if r[0] != rsc or not np.array_equal(r[1], rcig):
+            fail(f"striped_cigar_dp32 W={W}: result != host engine dp32")
+    over = sum(r[0] > 32767 for r in res)
+    if over < n // 8:
+        fail(f"striped_cigar_dp32: only {over} scores past 32767")
+    launches = kernels.launch_counts()["striped_cigar_dp32"]
+    ms = time_ms(lambda: st.striped_cigar_dp32(*args), reps=3)
+    rows, cells = _striped_cells(batch, st.VL32)
+    nbytes = 2 * cells + rows * (1 + 8) + n * (W + 8) + 22 * 22
+    bms, by = bound(nbytes, cells * K2_OPS_PER_CELL, INT32_OPS_PER_S)
+    top = max(r[0] for r in res)
+    print(f"[K4 striped_cigar_dp32] W={W} nl={nl_pad} n={n}: exact vs plain "
+          f"and host dp32, {over} scores > 32767 (max {top}); {ms:.3f} ms, "
+          f"{cells} cells, {cells / ms / 1e6:.2f} GCUPS; plain "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}); {launches} "
+          f"launches in this phase", flush=True)
+    return dict(name=f"striped_cigar_dp32[W={W},nl={nl_pad}] (library DP, "
+                "off the mapper: launches counted in its own phase)",
+                route="cuda", source=SRC + "striped_cigar.cu",
+                replaces="miniprot_tpu/kernels/nasw_cigar_pallas.py:74",
+                launches=launches, launches_by_path={"own phase": launches},
+                max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def phase_sketch(seed, strand_bp):
+    """K6 on strands of 5 and 1,000,003 bp and of ``strand_bp``, the
+    e2e workload's contig length (the index build sketches each contig
+    and its reverse complement whole); timed at strand_bp."""
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch.kernels import sketch_gpu as sg
+    from miniprot_tpu_torch.options import IdxOpt
+    from miniprot_tpu_torch.sketch import sketch_nt4
+    o = IdxOpt()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    for n in (5, 1_000_003, strand_bp):
+        seq = rng.choice(np.arange(5, dtype=np.uint8), n,
+                         p=[.24, .24, .24, .24, .04])
+        want = np.sort(sketch_nt4(seq, o.min_aa_len, o.kmer, o.mod_bit,
+                                  o.bbit, 77))
+        got = np.sort(sg.sketch_nt4_device(seq, o.min_aa_len, o.kmer,
+                                           o.mod_bit, o.bbit, 77, device=dev))
+        if not np.array_equal(got, want):
+            fail(f"sketch_orf n={n}: device sketch != host sketch_nt4")
+    sd = torch.from_numpy(seq).to(dev)
+    args = (sd, o.min_aa_len, o.kmer, o.mod_bit)
+    hs, ps, keep = sg.sketch_frames(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, pp, kp = sg.sketch_frames_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not (torch.equal(keep, kp) and torch.equal(hs[keep], hp[kp])
+            and torch.equal(ps[keep], pp[kp])):
+        fail("sketch_orf: kernel != plain version")
+    ms = time_ms(lambda: sg.sketch_frames(*args), reps=5)
+    windows = int(keep.numel())
+    bms, by = bound(n + 9 * windows, SKETCH_OPS_PER_SLOT * windows,
+                    INT32_OPS_PER_S)
+    print(f"[K6 sketch_orf] strand of {n} bp: exact vs plain and host "
+          f"sketch_nt4; {ms:.3f} ms ({n / ms / 1e6:.2f} Gbp/s), "
+          f"{int(keep.sum())} of {windows} windows kept; plain "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by})", flush=True)
+    return dict(name=f"sketch_orf[{n} bp]", route="cuda",
+                source=SRC + "sketch_orf.cu",
+                replaces="miniprot_tpu/kernels/sketch_jax.py:52",
+                counter="sketch_orf", paths=("index",), max_abs_err=0, ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def _map(mi, faa, opt, device, threads, need=()):
+    """One map_file run with the launch counts set to 0 just before it
+    and read just after; fails unless every kernel in ``need`` was
+    launched (and, for the host engine, unless none was)."""
     from miniprot_tpu_torch import kernels
+    from miniprot_tpu_torch.pipeline import map_file
+    from miniprot_tpu_torch.sysutil import profiler
+    profiler.reset()
+    kernels.reset_launch_counts()
+    buf, stats = io.StringIO(), {}
+    with kernels.timed_launches() as kernel_ms:
+        t0 = time.perf_counter()
+        n = map_file(mi, faa, opt, n_threads=threads, out=buf, device=device,
+                     stats=stats)
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    run = dict(out=buf.getvalue(), wall=wall, n=n, stats=stats,
+               launches=launches, kernel_ms=kernel_ms,
+               stages=dict(profiler.stages),
+               blocked=profiler.device_blocked_s,
+               rounds=profiler.flush_rounds)
+    if device is None and any(launches.values()):
+        fail(f"the host engine run launched kernels: {launches}")
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the main path")
+    if device is not None and stats["device_fraction"] < 0.90:
+        fail(f"device cell fraction {stats['device_fraction']:.4f} < 0.90")
+    return run
+
+
+def _report(tag, gpu, host, threads):
+    """Print one GPU map beside the host engine's run of the same map."""
+    stats = gpu["stats"]
+    lines = gpu["out"].count("\n")
+    print(f"[e2e {tag}] byte-identical ({lines} lines); GPU engine "
+          f"{gpu['n'] / gpu['wall']:.2f} proteins/s ({gpu['wall']:.2f} s), "
+          f"host engine {host['n'] / host['wall']:.2f} proteins/s "
+          f"({host['wall']:.2f} s), {threads} threads; device cell fraction "
+          f"{stats['device_fraction']:.4f}; DP calls {stats['n_device']} "
+          f"device / {stats['n_host']} host; batches {stats['batches']}; "
+          f"launches { {k: v for k, v in gpu['launches'].items() if v} }",
+          flush=True)
+    print(f"[e2e {tag}] batches per bucket (kind, width, nl bucket): "
+          + ", ".join(f"{k}x{w}x{b} {v}" for (k, w, b), v
+                      in sorted(stats["bucket_batches"].items())),
+          flush=True)
+    busy = sum(gpu["kernel_ms"].values()) / 1e3
+    print(f"[e2e {tag}] kernel device time in the GPU map: "
+          + ", ".join(f"{k} {v:.1f} ms"
+                      for k, v in sorted(gpu["kernel_ms"].items()))
+          + f"; {busy:.3f} s of {gpu['wall']:.2f} s "
+          f"(kernel busy share {busy / gpu['wall']:.4f})", flush=True)
+    print(f"[e2e {tag}] GPU map stages (host wall s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gpu["stages"].items()))
+          + f"; in collects (sync + decode) {gpu['blocked']:.3f}; "
+          f"{gpu['rounds']} flush rounds", flush=True)
+
+
+def phase_e2e(genome_mb, n_prot, threads):
+    """The default map, the striped-route map and the -O 0 map on both
+    engines, and the index built with the device sketch.  Returns each
+    path's launch counts: {"default" | "striped route" | "-O 0" |
+    "index": {kernel: launches}}."""
+    import numpy as np
+
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt
-    from miniprot_tpu_torch.pipeline import map_file
     from miniprot_tpu_torch.sysutil import profiler
     from miniprot_tpu_torch.testgen import make_workload
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
@@ -283,65 +600,60 @@ def phase_e2e(genome_mb, n_prot, threads):
         fa, faa = os.path.join(d, "g.fa"), os.path.join(d, "q.faa")
         t0 = time.perf_counter()
         make_workload(fa, faa, genome_len=genome_mb * 1_000_000,
-                      n_genes=n_prot, seed=11, n_ctg=4, max_intron=20_000,
+                      n_genes=n_prot, seed=11, n_ctg=N_CTG,
+                      max_intron=20_000,
                       rev_frac=0.5, fs_frac=0.1)
         t1 = time.perf_counter()
         mi = Index.build(fa, IdxOpt(), n_threads=threads)
         t2 = time.perf_counter()
         print(f"[e2e] workload {genome_mb} Mb x {n_prot} proteins: "
               f"generated {t1 - t0:.1f} s, index {t2 - t1:.1f} s", flush=True)
-        runs = {}
         profiler.enabled = True
-        for name, device in (("gpu", "cuda"), ("host", None)):
-            profiler.reset()
-            kernels.reset_launch_counts()
-            buf, stats = io.StringIO(), {}
-            with kernels.timed_launches() as kernel_ms:
-                t0 = time.perf_counter()
-                n = map_file(mi, faa, MapOpt(), n_threads=threads, out=buf,
-                             device=device, stats=stats)
-                wall = time.perf_counter() - t0
-            runs[name] = (buf.getvalue(), wall, n, stats,
-                          kernels.launch_counts(), kernel_ms)
-            if device is not None:
-                stages = dict(profiler.stages)
-                blocked = profiler.device_blocked_s
-                rounds = profiler.flush_rounds
+        k123 = ("ext_dp", "scan_cigar_dp", "scan_cigar_dp_small", "run_walk")
+        k45 = ("ext_dp", "striped_cigar_dp", "cell_walk")
+        gpu = _map(mi, faa, MapOpt(), "cuda", threads, k123)
+        host = _map(mi, faa, MapOpt(), None, threads)
+        os.environ["MINIPROT_TPU_CIG_IMPL"] = "striped"
+        try:
+            striped = _map(mi, faa, MapOpt(), "cuda", threads, k45)
+        finally:
+            del os.environ["MINIPROT_TPU_CIG_IMPL"]
+        o0 = MapOpt()
+        o0.go = 0
+        gpu0 = _map(mi, faa, o0, "cuda", threads, k45)
+        host0 = _map(mi, faa, o0, None, threads)
         profiler.enabled = False
-        gpu_out, gpu_wall, n, stats, launches, kernel_ms = runs["gpu"]
-        host_out, host_wall, _, _, host_launches, _ = runs["host"]
-    if gpu_out != host_out:
+        from miniprot_tpu_torch import kernels
+        kernels.reset_launch_counts()
+        t3 = time.perf_counter()
+        mi_gpu = Index.build(fa, IdxOpt(), sketch_device="cuda")
+        t4 = time.perf_counter()
+        sk_launches = kernels.launch_counts()
+    if gpu["out"] != host["out"]:
         fail("GPU engine output differs from the host engine's")
-    if gpu_out.count("\n") < n_prot // 2:
-        fail(f"too few output lines: {gpu_out.count(chr(10))}")
-    frac = stats["device_fraction"]
-    print(f"[e2e] byte-identical PAF ({gpu_out.count(chr(10))} lines); "
-          f"GPU engine {n / gpu_wall:.2f} proteins/s ({gpu_wall:.2f} s), "
-          f"host engine {n / host_wall:.2f} proteins/s ({host_wall:.2f} s), "
-          f"{threads} threads; device cell fraction {frac:.4f}; "
-          f"DP calls {stats['n_device']} device / {stats['n_host']} host; "
-          f"batches {stats['batches']}; launches {launches}", flush=True)
-    print("[e2e] batches per bucket (kind, width, nl bucket): "
-          + ", ".join(f"{k}x{w}x{b} {v}" for (k, w, b), v
-                      in sorted(stats["bucket_batches"].items())),
-          flush=True)
-    if any(host_launches.values()):
-        fail(f"the host engine run launched kernels: {host_launches}")
-    busy = sum(kernel_ms.values()) / 1e3
-    print(f"[e2e] K1-K3 device time in the GPU map: "
-          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(kernel_ms.items()))
-          + f"; {busy:.3f} s of {gpu_wall:.2f} s "
-          f"(kernel busy share {busy / gpu_wall:.4f})", flush=True)
-    print("[e2e] GPU map stages (host wall s): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
-          + f"; in collects (sync + decode) {blocked:.3f}; "
-          f"{rounds} flush rounds", flush=True)
-    if frac < 0.90:
-        fail(f"device cell fraction {frac:.4f} < 0.90")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched on the main path")
-    return launches
+    if gpu["out"].count("\n") < n_prot // 2:
+        fail(f"too few output lines: {gpu['out'].count(chr(10))}")
+    _report("default", gpu, host, threads)
+    if striped["out"] != host["out"]:
+        fail("striped-route GPU output differs from the host engine's")
+    _report("striped route", striped, host, threads)
+    if gpu0["out"] != host0["out"]:
+        fail("-O 0 GPU output differs from the host engine's")
+    if gpu0["out"].count("\n") < n_prot // 2:
+        fail(f"too few -O 0 output lines: {gpu0['out'].count(chr(10))}")
+    _report("-O 0", gpu0, host0, threads)
+    if not (np.array_equal(mi_gpu.ki, mi.ki) and np.array_equal(mi_gpu.kb,
+                                                                mi.kb)):
+        fail("the index built with the device sketch differs from the host "
+             "index")
+    if sk_launches["sketch_orf"] <= 0:
+        fail("kernel sketch_orf was not launched by the index build")
+    print(f"[e2e index] --gpu-sketch build equal to the host build "
+          f"({len(mi.kb)} kmer-block pairs): {t4 - t3:.1f} s on the card "
+          f"(one process, {sk_launches['sketch_orf']} sketch_orf launches) "
+          f"vs {t2 - t1:.1f} s host ({threads} processes)", flush=True)
+    return {"default": gpu["launches"], "striped route": striped["launches"],
+            "-O 0": gpu0["launches"], "index": sk_launches}
 
 
 def main() -> None:
@@ -378,15 +690,31 @@ def main() -> None:
             print(f"[ptxas] {ln.strip()}")
 
     entries = [phase_ext(128, 2112, 128, 1), phase_ext(512, 8448, 128, 2),
-               phase_ext(1024, 16896, 512, 6)]
+               phase_ext(1024, 16896, 512, 6),
+               phase_ext(128, 2112, 128, 13, go=0)]
     entries += phase_scan(128, 4096, 128, 3)
     entries += phase_scan(512, 2048, 128, 4)
     entries += phase_scan(32, 2048, 512, 5)
-    launches = phase_e2e(args.genome_mb, args.proteins, args.threads)
+    entries += phase_striped(128, 4096, 128, 7, go=0)
+    entries += phase_striped(512, 2048, 128, 8, go=11)
+    entries += phase_striped(32, 2048, 512, 9, go=11)
+    entries.append(phase_dp32(512, 2048, 128, 10))
+    entries.append(phase_sketch(12, args.genome_mb * 1_000_000 // N_CTG))
+    runs = phase_e2e(args.genome_mb, args.proteins, args.threads)
     for e in entries:
-        e["launches"] = launches[e.pop("counter")]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        if "counter" in e:
+            # launches: the runs of the paths that take this form (K1 at
+            # go 0 only in the -O 0 map, K4/K5 at go 11 only on the
+            # striped route); launches_by_path: every path's count
+            c = e.pop("counter")
+            e["launches"] = sum(runs[p][c] for p in e.pop("paths"))
+            e["launches_by_path"] = {p: r[c] for p, r in runs.items()
+                                     if r.get(c)}
+            if e["launches"] <= 0:
+                fail(f"{e['name']}: no launch on the path that runs it")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in entries]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -80,6 +80,8 @@ Options:
     --gpu        alignment DPs on the CUDA card (the default; fails when
                  no card of compute capability >= 9.0 is present)
     --no-gpu     host engine only
+    --gpu-sketch index-build sketching on the CUDA card (equal to the
+                 host sketch; fails when no sm_90 card is present)
     --profile    per-stage timers + DP cell counters and kernel launch
                  counts to stderr
     -o FILE      write output to FILE instead of stdout
@@ -88,7 +90,7 @@ Options:
 """
 
 _LONG_OPTS = {
-    "gpu", "no-gpu", "gff", "gff-only", "gtf", "aln", "trans",
+    "gpu", "no-gpu", "gpu-sketch", "gff", "gff-only", "gtf", "aln", "trans",
     "no-cs", "no-pre-chain",
     "version", "no-kalloc", "profile", "dbg-qname", "dbg-no-refine",
     "dbg-aflt", "dbg-anchor", "dbg-chain", "resume",
@@ -187,6 +189,8 @@ def _run(argv: list[str]) -> int:
                 dbg["chain"] = True
             elif key == "dbg-aflt":
                 dbg["more_dp"] = True
+            elif key == "gpu-sketch":
+                dbg["gpu_sketch"] = True
             elif key == "profile":
                 from . import sysutil
                 sysutil.profiler.enabled = True
@@ -296,7 +300,8 @@ def _run(argv: list[str]) -> int:
         sysutil.error("failed to find translation table %d", io.trans_code)
         return 1
 
-    mi = Index.load(pos[0], io, n_threads=n_threads)
+    mi = Index.load(pos[0], io, n_threads=n_threads,
+                    sketch_device="cuda" if dbg.get("gpu_sketch") else None)
     if set_I and not set_G:
         mo.set_max_intron(mi.nt.l_seq)
     if fn_idx is not None:

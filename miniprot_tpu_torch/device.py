@@ -5,6 +5,9 @@ regions and queries and dispatches them in shape-bucketed batches:
 
   "ext"    score-only extension DPs  -> kernels/nasw_ext (K1)
   "cigars" anchored gap-filling DPs  -> kernels/nasw_cigar_scan (K2 + K3)
+           at go >= 1, else (or with cig_impl="striped", the
+           MINIPROT_TPU_CIG_IMPL switch) kernels/nasw_cigar_striped
+           (K4 + K5)
 
 Launches are asynchronous on the card's current stream; the host
 engine's share of the round (jobs routed to the host by design) runs
@@ -14,15 +17,14 @@ Host routing (part of the algorithm, identical results, counted in
 n_host): ext jobs outside ext_fits_int16, longer than the largest
 bucket or shorter than MIN_DEVICE_NL; CIGAR jobs shorter than
 CIG_MIN_NL or wider than the largest class, --spsc CIGAR jobs whose
-folded donor goes negative, walks that hit the round cap, and every
-CIGAR job when go == 0 (the scan DP needs go >= 1; the striped kernel
-that serves go == 0 on the TPU is not ported yet).
+folded donor goes negative, and scan walks that hit the round cap.
 
 There is no hidden fallback: a build failure, a launch error or a
 device fault raises out of the engine.
 
-CIGAR memory policy: a scan batch allocates its tb and hint planes
-(tb_bytes(), int16 each) at launch; the per-batch cap and the cap on
+CIGAR memory policy: a batch allocates its traceback planes at launch
+(tb_bytes(): tb + hint for the scan kernel, tb alone for the striped
+one, int16 each); the per-batch cap and the cap on
 launched-but-uncollected planes are fractions of the card's own memory,
 and a batch is launched only after older batches are collected down to
 that cap.
@@ -39,6 +41,7 @@ import torch
 from .align import DpEnv
 from .kernels import resolve_device
 from .kernels import nasw_cigar_scan as csk
+from .kernels import nasw_cigar_striped as cst
 from .kernels import nasw_ext as nk
 from .native import DPF_CIGAR, DPF_EXT_LEFT, DPF_EXT_RIGHT
 from .options import MapOpt
@@ -107,9 +110,17 @@ class GpuExtEngine:
     """Batches alignment DPs onto the CUDA kernels (or, for
     device="cpu", onto their plain PyTorch versions)."""
 
-    def __init__(self, opt: MapOpt, device="cuda"):
+    def __init__(self, opt: MapOpt, device="cuda", cig_impl=None):
         self.opt = opt
         self.device = resolve_device(device)
+        # the CIGAR kernel: "scan" (go >= 1 only) or "striped"; the
+        # same output either way, so the switch is for coverage and
+        # parity, not tuning (the JAX engine reads the same variable)
+        self.cig_impl = cig_impl or _os.environ.get("MINIPROT_TPU_CIG_IMPL",
+                                                    "scan")
+        if self.cig_impl not in ("scan", "striped"):
+            raise ValueError(f"cig_impl {self.cig_impl!r}: 'scan' or "
+                             "'striped'")
         self.env = DpEnv(opt)  # host engine + sp/io defaults
         self.sp = self.env.sp
         self.scalars = (opt.go, opt.ge, opt.fs, opt.io, opt.xdrop,
@@ -125,7 +136,8 @@ class GpuExtEngine:
         self.requests: list[tuple] = []   # ("ext", idx) | ("cigars", [idx...])
         self.n_device = 0
         self.n_host = 0
-        self.batches = {"ext": 0, "cig": 0, "cig_small": 0}
+        self.batches = {"ext": 0, "cig": 0, "cig_small": 0,
+                        "cig_striped": 0, "cig_small_striped": 0}
         # launches per (kind, width, nl bucket)
         self.bucket_batches: dict[tuple, int] = {}
 
@@ -234,10 +246,23 @@ class GpuExtEngine:
         finally:
             profiler.add_device_block(_time.monotonic() - t0)
 
+    def _cig_classes(self, W: int):
+        """(raw class, host-prepped class) for CIGAR jobs of class width
+        W: the scan kernel when go >= 1 and cig_impl is "scan", else the
+        striped kernel.  go == 0 must take the striped kernel: the
+        scan/striped equivalence proof needs go >= 1 (the reference's
+        lazy-F break truncates at exact ties)."""
+        if self.cig_impl == "scan" and self.scalars[0] >= 1:
+            return (csk.SmallScanCigarBatch if W <= csk.SMALL_W
+                    else csk.RawScanCigarBatch), csk.ScanCigarBatch
+        return (cst.SmallCigarBatch if W <= csk.SMALL_W
+                else cst.RawCigarBatch), cst.CigarBatch
+
     def cig_shape(self, nl: int, al: int):
         """(slen_class, nl_bucket) for a CIGAR job, or None when the job
-        runs on the host.  A bucket is usable when a full batch's tb and
-        hint planes fit the per-batch cap."""
+        runs on the host.  A bucket is usable when a full batch's
+        traceback planes (the batch class's own tb_bytes) fit the
+        per-batch cap."""
         if nl < CIG_MIN_NL or al < 1:
             return None
         slen_p = (al + 7) // 8
@@ -245,8 +270,7 @@ class GpuExtEngine:
         if sc is None:
             return None
         W = sc * 8
-        cls = (csk.SmallScanCigarBatch if W <= csk.SMALL_W
-               else csk.RawScanCigarBatch)
+        cls = self._cig_classes(W)[0]
         for b in CIG_NL_BUCKETS:
             if nl <= b and cls.planes_bytes(b, W) <= self.cig_tb_cap:
                 return sc, b
@@ -266,8 +290,7 @@ class GpuExtEngine:
                 # the run-walk hit its round cap for this problem (an
                 # adversarially fragmented path): redo it on the host
                 profiler.add_device_dp(-batch.nl * batch.al, -1,
-                                       kind="cig_small" if batch.al <= 32
-                                       else "cig")
+                                       kind=_cig_kind(batch))
                 self.n_device -= 1
                 self._cig_host(cig_jobs, k)
             else:
@@ -281,11 +304,7 @@ class GpuExtEngine:
         host_jobs: list[int] = []
         buckets: dict[tuple, list[int]] = {}
         for i, job in enumerate(cig_jobs):
-            # go == 0: the scan DP needs go >= 1 and the striped kernel
-            # (B4) that serves go == 0 on the TPU is not ported yet, so
-            # these jobs run on the host engine
-            shape = (None if self.scalars[0] < 1
-                     else self.cig_shape(len(job.nsq), len(job.asq)))
+            shape = self.cig_shape(len(job.nsq), len(job.asq))
             if shape is None:
                 host_jobs.append(i)
                 continue
@@ -305,7 +324,7 @@ class GpuExtEngine:
             pending.append((idxs, batch, batch.launch()))
             outstanding[0] += need
             self.peak_pending_tb = max(self.peak_pending_tb, outstanding[0])
-            kind = "cig_small" if batch.al <= 32 else "cig"
+            kind = _cig_kind(batch)
             self.batches[kind] += 1
             key = (kind, batch.al, batch.nl)
             self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
@@ -314,8 +333,7 @@ class GpuExtEngine:
                                    kind=kind)
 
         for (slen, nl_b), idxs in buckets.items():
-            raw_cls = (csk.SmallScanCigarBatch if slen * 8 <= csk.SMALL_W
-                       else csk.RawScanCigarBatch)
+            raw_cls, prep_cls = self._cig_classes(slen * 8)
             cap = raw_cls.CAPACITY
             raw_all = [i for i in idxs if cig_jobs[i].ss is None]
             old_all = [i for i in idxs if cig_jobs[i].ss is not None]
@@ -331,11 +349,11 @@ class GpuExtEngine:
                     batch.add_raw(T.nt4[job.nsq], T.aa20[job.asq],
                                   io=self.opt.io)
                 launch(raw_idx, batch)
-            for c0 in range(0, len(old_all), csk.B):
-                old_idx = old_all[c0:c0 + csk.B]
+            for c0 in range(0, len(old_all), prep_cls.CAPACITY):
+                old_idx = old_all[c0:c0 + prep_cls.CAPACITY]
                 usable = []
-                batch = csk.ScanCigarBatch(slen * 8, nl_b, self.mat,
-                                           self.scalars, device=self.device)
+                batch = prep_cls(slen * 8, nl_b, self.mat, self.scalars,
+                                 device=self.device)
                 for i in old_idx:
                     job = cig_jobs[i]
                     nas, aas, d, a = self._prep(job, False, self.opt.io)
@@ -394,6 +412,15 @@ class GpuExtEngine:
 
     def flush(self) -> list:
         return self.flush_end(self.flush_begin())
+
+
+def _cig_kind(batch) -> str:
+    """The batches/bucket_batches key of a CIGAR batch: its class width
+    and kernel."""
+    kind = "cig_small" if batch.al <= csk.SMALL_W else "cig"
+    if isinstance(batch, (cst.CigarBatch, cst.RawCigarBatch)):
+        kind += "_striped"
+    return kind
 
 
 class _Flight:

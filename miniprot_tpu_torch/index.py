@@ -73,13 +73,19 @@ class Index:
         return bo
 
     @classmethod
-    def build(cls, fn_or_db, opt: IdxOpt, n_threads: int = 1) -> "Index":
+    def build(cls, fn_or_db, opt: IdxOpt, n_threads: int = 1,
+              sketch_device=None) -> "Index":
         """Build from a FASTA path or an NtDB (mp_idx_build, index.c:97-136).
 
         n_threads > 1 sketches contig-strands on a fork-based process
         pool (the reference's kt_for over 2*n_ctg, index.c:123); output
         is independent of n_threads (per-strand multisets are simply
-        concatenated before the global sort+dedup)."""
+        concatenated before the global sort+dedup).
+
+        sketch_device ("cuda" or "cpu") sketches the six frames of each
+        strand with kernels/sketch_gpu.py on that device instead (equal
+        to the host sketch) — --gpu-sketch on the CLI; None keeps the
+        host C sketch."""
         tables.set_default_code(opt.trans_code)
         from . import native, sysutil
         from .sysutil import profiler
@@ -98,7 +104,18 @@ class Index:
         # across strand parts (see mx_bb_finish); replaces 5-6
         # full-array radix passes per strand and the full-size cursor
         # table walks of the counting merge.
-        if n_threads > 1 and len(jobs) > 1:
+        if sketch_device is not None:
+            from .kernels.sketch_gpu import sketch_nt4_device
+
+            def raw_parts():
+                for cid, strand in jobs:
+                    seq = nt.get(cid, 0, -1, bool(strand))
+                    yield sketch_nt4_device(seq, opt.min_aa_len, opt.kmer,
+                                            opt.mod_bit, opt.bbit,
+                                            int(bo[cid << 1 | strand]),
+                                            opt.trans_code,
+                                            device=sketch_device)
+        elif n_threads > 1 and len(jobs) > 1:
             def raw_parts():
                 import multiprocessing as mp
                 import warnings
@@ -240,7 +257,8 @@ class Index:
         return cls(opt, nt, bo, ki, kb)
 
     @classmethod
-    def load(cls, fn: str, opt: IdxOpt, n_threads: int = 1) -> "Index":
+    def load(cls, fn: str, opt: IdxOpt, n_threads: int = 1,
+             sketch_device=None) -> "Index":
         """Load a prebuilt .mpi or build from FASTA (mp_idx_load)."""
         try:
             with open(fn, "rb") as fp:
@@ -249,4 +267,5 @@ class Index:
             magic = b""
         if magic == IDX_MAGIC:
             return cls.restore(fn)
-        return cls.build(fn, opt, n_threads=n_threads)
+        return cls.build(fn, opt, n_threads=n_threads,
+                         sketch_device=sketch_device)

@@ -34,14 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel wrapper; a wrapper adds one exactly where it
 # launches its CUDA kernel (plain-version calls on CPU tensors never count)
 LAUNCHES = {"ext_dp": 0, "scan_cigar_dp": 0, "scan_cigar_dp_small": 0,
-            "run_walk": 0}
+            "run_walk": 0, "striped_cigar_dp": 0, "striped_cigar_dp32": 0,
+            "cell_walk": 0, "sketch_orf": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = ""     # nvcc's -Xptxas -v output of the last build here
 _timed: list | None = None   # (entry, start, end) events under timed_launches
 
-_vp, _i = ct.c_void_p, ct.c_int
+_vp, _i, _ll = ct.c_void_p, ct.c_int, ct.c_longlong
 _SIGNATURES = {
     # nas D A logpen nl al prof out | n R RD AL go ge fs xdrop endb | stream
     "mp_ext_dp": [_vp] * 8 + [_i] * 9 + [_vp],
@@ -49,6 +50,13 @@ _SIGNATURES = {
     "mp_scan_cigar": [_vp] * 9 + [_i] * 8 + [_vp],
     # tb hint nl al states counts fi fj | n TR W rounds | stream
     "mp_run_walk": [_vp] * 8 + [_i] * 4 + [_vp],
+    # nas D A nl al aas mat tb score | n R RD W TR go ge fs vl | stream
+    "mp_striped_cigar": [_vp] * 9 + [_i] * 9 + [_vp],
+    # tb nl al states fi fj | n TR W steps | stream
+    "mp_cell_walk": [_vp] * 6 + [_i] * 4 + [_vp],
+    # seq codon codon13 hs ps keep | ns0 ns1 ns2 off1 off2 | min_aa_len
+    # kmer mod_bit | stream
+    "mp_sketch_orf": [_vp] * 6 + [_ll] * 5 + [_i] * 3 + [_vp],
 }
 
 

@@ -5,7 +5,11 @@
 // saturation (exact under device.ext_fits_int16), the I state as an
 // exact prefix max over protein positions, the row max plus end bonus,
 // the log-length-adjusted best row, x-drop termination and the final
-// aa_len pass.
+// aa_len pass.  At go == 0 the I state follows the host engine instead
+// (the reference's lazy-F breaks at its first step there): a prefix max
+// inside each SSE lane's run of ceil(al/8) positions, then one step
+// from each lane's last position into the next lane's first
+// (kernels/nasw_ext.py's docstring).
 //
 // Design.  One thread block per problem; protein positions go across
 // threads (P consecutive positions per thread, NT threads, AL = P*NT).
@@ -39,8 +43,10 @@ __global__ void __launch_bounds__(NT) ext_dp_kernel(
   constexpr int AL = P * NT;
   __shared__ int8_t s_prof[22 * AL];
   __shared__ int s_scan[NW], s_max[NW], s_edge[NW], s_fin[NW];
+  __shared__ int s_sf[NW], s_sv[NW], s_sm[NW], s_e0[NW];  // go == 0 only
   const int b = blockIdx.x, tid = threadIdx.x;
   const int nl = nlv[b], al = alv[b];
+  const int sl = imax((al + 7) / 8, 1);  // SSE lane length (go == 0)
   const int8_t* pb = prof + (size_t)b * 22 * AL;
   for (int k = tid; k < 22 * AL; k += NT) s_prof[k] = pb[k];
   __syncthreads();
@@ -97,15 +103,50 @@ __global__ void __launch_bounds__(NT) ext_dp_kernel(
       h[p] = v;
       tot = imax(tot, v + q * ge);
     }
-    // I(q) = max_{k<q}(h(k) + k*ge) - q*ge - go  (exclusive prefix max)
-    int carry = block_excl_max<NW>(tot, NEG, s_scan);
+    if (go > 0) {
+      // I(q) = max_{k<q}(h(k) + k*ge) - q*ge - go  (exclusive prefix max)
+      int carry = block_excl_max<NW>(tot, NEG, s_scan);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int q = q0 + p;
+        const int hp = h[p];
+        h[p] = imax(hp, carry - q * ge - go);
+        carry = imax(carry, hp + q * ge);
+      }
+    } else {
+      // go == 0: the prefix max restarts at every lane start (uniform
+      // branch: go is the same for the whole block)
+      Seg sg{0, NEG};
+      int unused = NEG;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int q = q0 + p;
+        sg = seg_combine(sg, Seg{q % sl == 0, h[p] + q * ge});
+      }
+      block_excl_seg_and_max<NW>(sg, unused, NEG, s_sf, s_sv, s_sm);
+      int segc = sg.v;
+      int hp1[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int q = q0 + p;
+        const int st = q % sl == 0;
+        hp1[p] = imax(h[p], (st ? NEG : segc) - q * ge);
+        segc = st ? h[p] + q * ge : imax(segc, h[p] + q * ge);
+      }
+      // the one lazy-F step: lanes 1..7 start from the previous lane's end
+      const int lh = from_left<NW>(hp1[P - 1], NEG, s_e0);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int q = q0 + p;
+        const int prev = p ? hp1[p - 1] : lh;
+        const int lane = q / sl;
+        h[p] = q % sl == 0 && lane >= 1 && lane < 8 ? imax(hp1[p], prev - ge) : hp1[p];
+      }
+    }
     int rowmax = NEG;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
-      const int hp = h[p];
-      h[p] = imax(hp, carry - q * ge - go);
-      carry = imax(carry, hp + q * ge);
       rowmax = imax(rowmax, h[p] + (q == al - 1 ? end_bonus : 0));
     }
     const int tmp_sc = block_max<NW>(rowmax, s_max);

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import tables as _tables
-from . import LAUNCHES, call, require, stream_ptr
+from . import LAUNCHES, call, require, resolve_device, stream_ptr
 from .nasw_ext import _prep_seq_device, _upload
 
 NEG16 = -32768           # int16 saturation floor
@@ -64,6 +64,72 @@ def _sat(x):
     return torch.clamp(x, -32768, 32767)
 
 
+def _sadd(a, b):
+    return _sat(a + b)
+
+
+def _ssub(a, b):
+    return _sat(a - b)
+
+
+def _left(x, fill):
+    """x moved one position along dim 1: out[:, q] = x[:, q-1], fill at
+    q = 0."""
+    col = torch.full((x.shape[0], 1), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([col, x[:, :-1]], dim=1)
+
+
+def _row_terms(i, nas, D, A, S, H, D3, carries, opts, neg, add, sub):
+    """The order-free terms of genome row i of the NS_F_CIGAR recurrence
+    (nasw-sse.c:444-520 without I), all problems and positions at once,
+    in position order.  S = the row's scores; H = (H1, H2, H3) the
+    previous rows; D3 = D(i-3); carries = the A/B/C intron carries;
+    add/sub = saturating or plain arithmetic, neg its floor.  Returns
+    match, the candidates after I in the strict-> priority order (D, A,
+    B, C, the four frameshift moves), the extension bits (b5..b8) and
+    the new carries."""
+    go, ge, fs = opts
+    H1, H2, H3 = H
+    Ac, Bc, Cc = carries
+    c = nas[:, i].long()
+    gei = torch.where(c == 20, fs, ge).to(torch.int32).view(-1, 1)
+    dm1, d0, dp1 = (D[:, i - 1:i], D[:, i:i + 1], D[:, i + 1:i + 2])
+    a0, am1, am2 = (A[:, i:i + 1], A[:, i - 1:i], A[:, i - 2:i - 1])
+    # the [-1] column: H(-1,-1)=0, H(0,-1)=H(1,-1)=-fs at row 2 only
+    first = i == 2
+    H3m1 = _left(H3, 0 if first else neg)
+    H1m1 = _left(H1, -fs if first else neg)
+    H2m1 = _left(H2, -fs if first else neg)
+    match = add(H3m1, S)
+    ud = sub(H3, go)
+    b5 = D3 > ud
+    Dn = sub(torch.maximum(ud, D3), gei)
+    ua = sub(H1, dm1)
+    b6 = Ac > ua
+    Ac = torch.maximum(ua, Ac)
+    ub = sub(H1m1, d0)
+    b7 = Bc > ub
+    Bc = torch.maximum(ub, Bc)
+    uc = sub(H1m1, dp1)
+    b8 = Cc > uc
+    Cc = torch.maximum(uc, Cc)
+    cands = (Dn, sub(Ac, a0), sub(Bc, am2), sub(Cc, am1), sub(H1, fs),
+             sub(H2, fs), sub(H1m1, fs), sub(H2m1, fs))
+    return match, cands, (b5, b6, b7, b8), (Ac, Bc, Cc)
+
+
+def _state_nibble(match, I, cands):
+    """The pass-1 state nibble: where the strict-> priority chain over
+    (match, I, *cands) ends, i.e. the first of them to reach the max."""
+    h = match
+    y = torch.where(I > h, 1, 0).to(torch.int32)
+    h = torch.maximum(h, I)
+    for code, cand in enumerate(cands, 2):
+        y = torch.where(cand > h, code, y)
+        h = torch.maximum(h, cand)
+    return y
+
+
 def _pad_rows(nl_pad: int) -> int:
     """A batch's row count: nl_pad rounded up to a multiple of 256."""
     return ((nl_pad + 255) // 256) * 256
@@ -87,7 +153,7 @@ def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
     go = int(opts[0])
     if go < 1:
         raise ValueError("scan CIGAR DP needs go >= 1 (the scan/striped "
-                         "equivalence proof; go == 0 jobs go to the host)")
+                         "equivalence proof); go == 0 takes the striped DP")
     if not nas.is_cuda:
         return scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows)
     n, R = nas.shape
@@ -155,66 +221,29 @@ def scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows):
     CA, CB, CC = full(0), full(0), full(0)
     ar = torch.arange(n, device=dev)
     last = (alv - 1).long()
-
-    def left(x, fill):
-        col = torch.full((n, 1), fill, dtype=i32, device=dev)
-        return torch.cat([col, x[:, :-1]], dim=1)
-
     max_nl = min(int(nlv.max()) if n else 0, rows)
     for i in range(2, max_nl):
-        c = nas[:, i].long()
-        S = torch.where(qpad, NEG16, prof[ar, c])
-        gei = torch.where(c == 20, fs, ge).to(i32).view(n, 1)
-        dm1, d0, dp1 = (D[:, i - 1:i], D[:, i:i + 1], D[:, i + 1:i + 2])
-        a0, am1, am2 = (A[:, i:i + 1], A[:, i - 1:i], A[:, i - 2:i - 1])
-        # the [-1] column: H(-1,-1)=0, H(0,-1)=H(1,-1)=-fs at row 2 only
-        first = i == 2
-        H3m1 = left(H3, 0 if first else NEG16)
-        H1m1 = left(H1, -fs if first else NEG16)
-        H2m1 = left(H2, -fs if first else NEG16)
-        match = _sat(H3m1 + S)
-        ud = _sat(H3 - go)
-        b5 = D3 > ud
-        Dn = _sat(torch.maximum(ud, D3) - gei)
-        ua = _sat(H1 - dm1)
-        b6 = Ac > ua
-        Ac = torch.maximum(ua, Ac)
-        cA = _sat(Ac - a0)
-        ub = _sat(H1m1 - d0)
-        b7 = Bc > ub
-        Bc = torch.maximum(ub, Bc)
-        cB = _sat(Bc - am2)
-        uc = _sat(H1m1 - dp1)
-        b8 = Cc > uc
-        Cc = torch.maximum(uc, Cc)
-        cC = _sat(Cc - am1)
-        f1, f2, f3, f4 = (_sat(H1 - fs), _sat(H2 - fs), _sat(H1m1 - fs),
-                          _sat(H2m1 - fs))
+        S = torch.where(qpad, NEG16, prof[ar, nas[:, i].long()])
+        match, cands, (b5, b6, b7, b8), (Ac, Bc, Cc) = _row_terms(
+            i, nas, D, A, S, (H1, H2, H3), D3, (Ac, Bc, Cc), (go, ge, fs),
+            NEG16, _sadd, _ssub)
         base = match
-        for x in (Dn, cA, cB, cC, f1, f2, f3, f4):
+        for x in cands:
             base = torch.maximum(base, x)
         # the two I scans
         u = _sat(base - go) + qge
         SM = torch.cummax(segkey + (u.to(i64) + (1 << 31)), dim=1).values
         SM = (SM - segkey - (1 << 31)).to(i32)
-        Iused = torch.maximum(torch.where(seg0, NEGI, left(SM, NEGI)) - qge,
+        Iused = torch.maximum(torch.where(seg0, NEGI, _left(SM, NEGI)) - qge,
                               torch.tensor(NEG16, dtype=i32, device=dev))
         FM = torch.cummax(u, dim=1).values
-        Istar = torch.clamp(left(FM, NEGI) - qge, min=NEG16)
+        Istar = torch.clamp(_left(FM, NEGI) - qge, min=NEG16)
         hp1 = torch.maximum(base, Iused)
         Hfin = torch.maximum(base, Istar)
         b9 = Istar > hp1
         t4 = _sat(hp1 - go)
-        b4 = ~seg0 & (left(Iused, NEGI) > left(t4, 0))
-        # pass-1 state nibble: strict-> priority chain
-        h = match
-        y = torch.where(Iused > h, 1, 0).to(i32)
-        h = torch.maximum(h, Iused)
-        for cand, code in ((Dn, 2), (cA, 3), (cB, 4), (cC, 5),
-                           (f1, 6), (f2, 7), (f3, 8), (f4, 9)):
-            y = torch.where(cand > h, code, y)
-            h = torch.maximum(h, cand)
-        s0 = torch.where(b9, 1, y)
+        b4 = ~seg0 & (_left(Iused, NEGI) > _left(t4, 0))
+        s0 = torch.where(b9, 1, _state_nibble(match, Iused, cands))
         word = (s0 | (b4.to(i32) << 4) | (b5.to(i32) << 5)
                 | (b6.to(i32) << 6) | (b7.to(i32) << 7)
                 | (b8.to(i32) << 8) | (b9.to(i32) << 9))
@@ -227,7 +256,7 @@ def scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows):
         CB = torch.where(b7, CB + 1, 0)
         CC = torch.where(b8, CC + 1, 0)
         fin0 = s0 == 0
-        cnt0 = torch.where(fin0, left(C03, 0) + 1, 0)
+        cnt0 = torch.where(fin0, _left(C03, 0) + 1, 0)
         hv = torch.where(fin0, cnt0 - 1, 0)
         hv = torch.where(s0 == 1, cnt1, hv)
         hv = torch.where(s0 == 2, cntD, hv)
@@ -237,7 +266,7 @@ def scan_cigar_dp_plain(nas, D, A, nlv, alv, prof, opts, rows):
         hint[:, i] = hv.to(torch.int16)
         score = torch.where(nlv - 1 == i, Hfin[ar, last], score)
         H3, H2, H1 = H2, H1, Hfin
-        D3, D2, D1 = D2, D1, Dn
+        D3, D2, D1 = D2, D1, cands[0]
         C03, C02, C01 = C02, C01, cnt0
         CD3, CD2, CD1 = CD2, CD1, cntD
     # rows past a problem's own nl were computed for the batch only
@@ -325,48 +354,140 @@ def run_walk_plain(tb, hint, nlv, alv, rounds):
 # ---------------------------------------------------------------------------
 
 
-class _ScanBatch:
-    """Shared part of the scan batch classes: the query profile, the
-    per-problem lengths, the launch of K2 + K3 and the decode."""
+class TrackBatch:
+    """Host side shared by the CIGAR batches of both kernel families
+    (this module's scan batches and nasw_cigar_striped's): the
+    per-problem lengths, the query in the family's own form
+    (_alloc_query / _put_query), the traceback-plane byte count (PLANES
+    int16 planes per cell) and, through HostTracks or RawTracks, the
+    genome tracks on the device.  A family adds its launch/collect
+    pair."""
 
     CAPACITY = B
+    PLANES = 1
 
-    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, device="cpu",
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, device=None,
                  capacity=None):
-        self.al = al_pad                     # W, the class width
+        self.al = self._width(al_pad)          # W, the class width
         self.nl = _pad_rows(nl_pad)
         (self.go, self.ge, self.fs, self.default_io, self.xdrop,
          self.end_bonus, self.ie_coef) = opt_scalars
-        self.mat = np.asarray(mat).reshape(22, 22)
-        self.device = torch.device(device)
+        self.mat = np.asarray(mat).reshape(22, 22).astype(np.int8)
+        self.device = resolve_device(device)
         self.capacity = capacity or self.CAPACITY
-        cap = self.capacity
-        self.prof = np.zeros((cap, 22, self.al), np.int8)
-        self.alv = np.ones(cap, np.int32)
-        self.nlv = np.zeros(cap, np.int32)
+        self.alv = np.ones(self.capacity, np.int32)
+        self.nlv = np.zeros(self.capacity, np.int32)
         self.dims = []
         self.n = 0
+        self._alloc_query()
+
+    @classmethod
+    def _width(cls, al_pad: int) -> int:
+        return al_pad
 
     @classmethod
     def planes_bytes(cls, nl_pad, W, capacity=None) -> int:
-        """Device bytes of a full batch's traceback planes: the tb plane
-        plus the run-length hint plane, int16 each (twice the striped
-        kernel's tb-only formula)."""
-        return 2 * 2 * _pad_rows(nl_pad) * W * (capacity or cls.CAPACITY)
+        """Device bytes of a full batch's traceback planes."""
+        return 2 * cls.PLANES * _pad_rows(nl_pad) * W * (capacity
+                                                         or cls.CAPACITY)
 
     def tb_bytes(self) -> int:
         return self.planes_bytes(self.nl, self.al, self.capacity)
 
-    def _add_query(self, aas, b, nl):
-        assert self.go >= 1, "go==0 breaks scan/striped equivalence; " \
-            "route the job to the host engine"
-        al = len(aas)
-        assert nl <= self.nl and al <= self.al and b < self.capacity
-        self.prof[b, :, :al] = self.mat[:, aas]
+    def _add_query(self, aas, nl) -> int:
+        b, al = self.n, len(aas)
+        assert 1 <= al <= self.al and nl <= self.nl and b < self.capacity
+        self._put_query(b, aas)
         self.alv[b] = al
         self.nlv[b] = nl
         self.dims.append((nl, al))
         self.n += 1
+        return b
+
+    def _rows(self) -> int:
+        return max(3, max((nl for nl, _ in self.dims), default=3))
+
+    def _lens(self):
+        """(nlv, alv) of the batch on its device."""
+        return (_upload(self.nlv[:self.n], self.device),
+                _upload(self.alv[:self.n], self.device))
+
+    def run(self):
+        return self.collect(self.launch())
+
+
+class HostTracks(TrackBatch):
+    """Tracks prepped on the host (--spsc jobs): nas, and the donor
+    (folded with io) and acceptor streams."""
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, **kw):
+        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
+        cap = self.capacity
+        self.nas = np.zeros((cap, self.nl), np.int8)
+        self.D = np.zeros((cap, self.nl + 8), np.int16)
+        self.A = np.zeros((cap, self.nl + 8), np.int16)
+
+    def add(self, nas, aas, donor, acceptor, io=None):
+        io = self.default_io if io is None else io
+        nl = len(nas)
+        b = self._add_query(aas, nl)
+        self.nas[b, :nl] = nas
+        self.D[b, :nl + 1] = donor.astype(np.int32)[:nl + 1] + io
+        self.A[b, :nl + 1] = acceptor.astype(np.int32)[:nl + 1]
+        return b
+
+    def _tracks(self):
+        n, dev, R = self.n, self.device, self._rows()
+        return (_upload(self.nas[:n, :R], dev),
+                _upload(self.D[:n, :R + 8], dev).to(torch.int32),
+                _upload(self.A[:n, :R + 8], dev).to(torch.int32))
+
+
+class RawTracks(TrackBatch):
+    """Raw nt4 windows; the tracks are rebuilt on the device
+    (_prep_seq_device).  CIGAR jobs here are forward-strand and carry no
+    --spsc track, so the folded donor stream is non-negative by
+    construction."""
+
+    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, sp,
+                 trans_code: int = 1, **kw):
+        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
+        self.sp = np.asarray(sp, np.int32).reshape(-1)
+        self.trans_code = trans_code
+        self.nt = np.zeros((self.capacity, self.nl + 8), np.int8)
+        self.iov = np.zeros(self.capacity, np.int32)
+
+    def add_raw(self, nt4: np.ndarray, aas: np.ndarray, io=None):
+        io = self.default_io if io is None else io
+        nl = len(nt4)
+        b = self._add_query(aas, nl)
+        self.nt[b, :nl] = nt4
+        self.iov[b] = io
+        return b
+
+    def _tracks(self):
+        n, dev, R = self.n, self.device, self._rows()
+        return _prep_seq_device(
+            _upload(self.nt[:n, :R + 8], dev),
+            torch.zeros(n, dtype=torch.int8, device=dev),
+            _upload(self.iov[:n], dev), _upload(self.nlv[:n], dev),
+            sp=self.sp, codon=_tables.get_tables(self.trans_code).codon,
+            n_rows=R)
+
+
+class _ScanBatch(TrackBatch):
+    """The scan family: the query as a (22, W) profile, K2 + K3, and
+    two planes per cell (tb and the run-length hint)."""
+
+    PLANES = 2
+
+    def _alloc_query(self):
+        self.prof = np.zeros((self.capacity, 22, self.al), np.int8)
+
+    def _put_query(self, b, aas):
+        assert self.go >= 1, "go==0 breaks scan/striped equivalence; " \
+            "use the striped batches (nasw_cigar_striped)"
+        self.prof[b, :, :len(aas)] = self.mat[:, aas]
 
     def _rows_used(self):
         max_nl = max((nl for nl, _ in self.dims), default=self.nl)
@@ -378,18 +499,14 @@ class _ScanBatch:
     def rounds(self) -> int:
         return min(self._rows_used() + self.al + 2, _rounds_cap())
 
-    def _rows(self) -> int:
-        return max(3, max((nl for nl, _ in self.dims), default=3))
-
-    def _launch_tracks(self, nas, D, A):
-        """K2 then K3 on uploaded tracks; returns the device handles."""
-        n, dev = self.n, self.device
-        nlv = _upload(self.nlv[:n], dev)
-        alv = _upload(self.alv[:n], dev)
-        rows = self._rows()
+    def launch(self):
+        """K2 then K3 on the batch's tracks; returns the device handles
+        without waiting."""
+        nlv, alv = self._lens()
         tb, hint, score = scan_cigar_dp(
-            nas, D, A, nlv, alv, _upload(self.prof[:n], dev),
-            (self.go, self.ge, self.fs), rows)
+            *self._tracks(), nlv, alv, _upload(self.prof[:self.n],
+                                               self.device),
+            (self.go, self.ge, self.fs), self._rows())
         states, counts, fi, fj = run_walk(tb, hint, nlv, alv, self.rounds())
         return states, counts, fi, fj, score
 
@@ -410,70 +527,13 @@ class _ScanBatch:
                                                  int(fj[b]))))
         return out
 
-    def run(self):
-        return self.collect(self.launch())
 
-
-class ScanCigarBatch(_ScanBatch):
+class ScanCigarBatch(HostTracks, _ScanBatch):
     """Scan CIGAR problems with host-prepped tracks (--spsc jobs)."""
 
-    def __init__(self, al_pad, nl_pad, mat, opt_scalars, **kw):
-        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
-        cap = self.capacity
-        self.nas = np.zeros((cap, self.nl), np.int8)
-        self.D = np.zeros((cap, self.nl + 8), np.int16)
-        self.A = np.zeros((cap, self.nl + 8), np.int16)
 
-    def add(self, nas, aas, donor, acceptor, io=None):
-        b = self.n
-        io = self.default_io if io is None else io
-        nl = len(nas)
-        self._add_query(aas, b, nl)
-        self.nas[b, :nl] = nas
-        self.D[b, :nl + 1] = donor.astype(np.int32)[:nl + 1] + io
-        self.A[b, :nl + 1] = acceptor.astype(np.int32)[:nl + 1]
-        return b
-
-    def launch(self):
-        n, dev, R = self.n, self.device, self._rows()
-        i32 = torch.int32
-        return self._launch_tracks(
-            _upload(self.nas[:n, :R], dev),
-            _upload(self.D[:n, :R + 8], dev).to(i32),
-            _upload(self.A[:n, :R + 8], dev).to(i32))
-
-
-class RawScanCigarBatch(_ScanBatch):
-    """Scan CIGAR problems shipped as raw nt4 windows (device prep).
-    CIGAR jobs here are forward-strand and carry no --spsc track, so the
-    folded donor stream is non-negative by construction."""
-
-    def __init__(self, al_pad, nl_pad, mat, opt_scalars, *, sp,
-                 trans_code: int = 1, **kw):
-        super().__init__(al_pad, nl_pad, mat, opt_scalars, **kw)
-        self.sp = np.asarray(sp, np.int32).reshape(-1)
-        self.trans_code = trans_code
-        self.nt = np.zeros((self.capacity, self.nl + 8), np.int8)
-        self.iov = np.zeros(self.capacity, np.int32)
-
-    def add_raw(self, nt4: np.ndarray, aas: np.ndarray, io=None):
-        b = self.n
-        io = self.default_io if io is None else io
-        nl = len(nt4)
-        self._add_query(aas, b, nl)
-        self.nt[b, :nl] = nt4
-        self.iov[b] = io
-        return b
-
-    def launch(self):
-        n, dev, R = self.n, self.device, self._rows()
-        nas, D, A = _prep_seq_device(
-            _upload(self.nt[:n, :R + 8], dev),
-            torch.zeros(n, dtype=torch.int8, device=dev),
-            _upload(self.iov[:n], dev), _upload(self.nlv[:n], dev),
-            sp=self.sp, codon=_tables.get_tables(self.trans_code).codon,
-            n_rows=R)
-        return self._launch_tracks(nas, D, A)
+class RawScanCigarBatch(RawTracks, _ScanBatch):
+    """Scan CIGAR problems shipped as raw nt4 windows (device prep)."""
 
 
 class SmallScanCigarBatch(RawScanCigarBatch):
@@ -482,6 +542,7 @@ class SmallScanCigarBatch(RawScanCigarBatch):
 
     CAPACITY = SMALL_CAPACITY
 
-    def __init__(self, al_pad, nl_pad, mat, opt_scalars, **kw):
+    @classmethod
+    def _width(cls, al_pad: int) -> int:
         assert al_pad <= SMALL_W
-        super().__init__(SMALL_W, nl_pad, mat, opt_scalars, **kw)
+        return SMALL_W

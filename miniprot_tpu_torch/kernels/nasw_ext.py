@@ -14,6 +14,18 @@ x-drop termination and the first position reaching the max (aa_len).
 Scores are int32 without saturation, exact under
 device.ext_fits_int16 (the proof is in nasw_pallas.py's docstring).
 
+The exact I holds for go >= 1.  At go == 0 the reference's lazy-F
+fixup breaks at its first step (its test I - ge <= max(H, I) - go - ge
+always holds), so I runs only inside each SSE lane — the run of
+slen = ceil(al/8) positions a lane owns — plus one step from each
+lane's last position into the next lane's first:
+
+    I(q) = max_{lane start <= k < q}(Hni(i,k) + k*ge) - q*ge
+    H(q) = max(H(q), H(q-1) - ge)  at the starts of lanes 1..7
+
+The JAX ext kernel applies the exact I at go == 0 too and so differs
+from the host engine there (ROADMAP Queue C).
+
 Layout here is problem-major: every per-problem array has the problem
 on dim 0 (nas (n, R), D/A (n, R+8), profile (n, 22, AL)); the TPU's
 128-lane batches, 264-row grid chunks and packed 6-select profile are
@@ -29,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from . import LAUNCHES, call, require, stream_ptr
+from . import LAUNCHES, call, require, resolve_device, stream_ptr
 
 NEG = -(1 << 29)
 B_LANES = 128           # default problems per batch (the engine's unit)
@@ -414,7 +426,8 @@ def ext_dp_plain(nas, D, A, logpen, nlv, alv, prof, opts, rows_done=None):
     genome row per step over all problems and positions, the I state by
     torch.cummax.  Mirrors nasw_pallas._ext_kernel, including the padded
     positions q >= al that take part in the row max, except the [-1]
-    column after row 2, where it follows the host engine (dp16_ext_w).
+    column after row 2 and the I state at go == 0, where it follows the
+    host engine (dp16_ext_w).
     rows_done, when given, is an (n,) tensor that receives the number of
     genome rows each problem ran before x-drop or its end (the work K1
     does for these inputs)."""
@@ -429,6 +442,13 @@ def ext_dp_plain(nas, D, A, logpen, nlv, alv, prof, opts, rows_done=None):
     qge = q * ge
     qpad = q >= alv.view(n, 1)
     endb = torch.where(q == alv.view(n, 1) - 1, end_bonus, 0).to(i32)
+    # go == 0: the SSE lanes (runs of slen = ceil(al/8) positions) and
+    # the lane starts that take the one lazy-F step (module docstring)
+    sl = torch.clamp((alv + 7) // 8, min=1).view(n, 1)
+    lane = q // sl
+    seg0 = q % sl == 0
+    segkey = lane.to(torch.int64) << 34
+    lane_start = seg0 & (lane >= 1) & (lane < 8)
     prof = prof.to(i32)
     D = D.to(i32)
     A = A.to(i32)
@@ -475,10 +495,15 @@ def ext_dp_plain(nas, D, A, logpen, nlv, alv, prof, opts, rows_done=None):
         h = torch.maximum(h, Cc - am1)
         h = torch.maximum(h, torch.maximum(torch.maximum(H1, H2),
                                            torch.maximum(H1m1, H2m1)) - fs)
-        M = torch.cummax(h + qge, dim=1).values
-        Mex = torch.cat([torch.full((n, 1), NEG, dtype=i32, device=dev),
-                         M[:, :-1]], dim=1)
-        h = torch.maximum(h, Mex - qge - go)
+        if go > 0:
+            M = torch.cummax(h + qge, dim=1).values
+            h = torch.maximum(h, left(M, NEG) - qge - go)
+        else:
+            SM = torch.cummax(segkey + (h + qge).to(torch.int64) + (1 << 32),
+                              dim=1).values - segkey - (1 << 32)
+            h = torch.maximum(h, torch.where(seg0, NEG,
+                                             left(SM.to(i32), NEG) - qge))
+            h = torch.where(lane_start, torch.maximum(h, left(h, NEG) - ge), h)
         # extension bookkeeping
         tmp_sc = (h + endb).max(dim=1).values
         tmp_log = tmp_sc - logpen[:, i].to(i32)
@@ -525,13 +550,13 @@ class ExtBatch:
     """Extension problems with host-prepped tracks (the --spsc path)."""
 
     def __init__(self, al_pad: int, nl_pad: int, mat: np.ndarray,
-                 opt_scalars, *, device="cpu", capacity: int = B_LANES):
+                 opt_scalars, *, device=None, capacity: int = B_LANES):
         self.al = al_pad
         self.nl = nl_pad
         (self.go, self.ge, self.fs, self.default_io, self.xdrop,
          self.end_bonus, self.ie_coef) = opt_scalars
         self.mat = np.asarray(mat).reshape(22, 22)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacity = capacity
         self.nas = np.zeros((capacity, self.nl), np.int8)
         self.D = np.zeros((capacity, self.nl + 8), np.int16)
@@ -585,7 +610,7 @@ class RawExtBatch:
     rebuilt on the device (_prep_seq_device) before K1."""
 
     def __init__(self, al_pad: int, nl_pad: int, mat: np.ndarray,
-                 opt_scalars, *, sp, trans_code: int = 1, device="cpu",
+                 opt_scalars, *, sp, trans_code: int = 1, device=None,
                  capacity: int = B_LANES):
         self.al = al_pad
         self.nl = nl_pad
@@ -594,7 +619,7 @@ class RawExtBatch:
         self.mat = np.asarray(mat).reshape(22, 22)
         self.sp = np.asarray(sp, np.int32).reshape(-1)
         self.trans_code = trans_code
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.capacity = capacity
         self.nt = np.zeros((capacity, self.nl + 8), np.int8)
         self.leftb = np.zeros(capacity, np.int8)

@@ -1631,8 +1631,11 @@ MX_EXPORT void mx_dp16(
 	}
 
 #if defined(__x86_64__)
-	if (is_ext && al > 8 && mx_have_avx512bw()) {
-		/* wide score-only path: identical outputs, 32 lanes per op */
+	if (is_ext && al > 8 && go_ > 0 && mx_have_avx512bw()) {
+		/* wide score-only path: identical outputs, 32 lanes per op.  Its
+		 * exact cross-lane carry needs go > 0: at go == 0 the 8-lane
+		 * lazy-F breaks at its first step (I - ge <= max(H, I) - ge), so
+		 * the reference's scores depend on its 8-lane striping */
 		dp16_ext_w(nas, donor, acceptor, aas, nl, al, mat, asize,
 		           go_, ge_, io_, fs_, xdrop, end_bonus, ie_coef,
 		           out_score, out_nt_len, out_aa_len);

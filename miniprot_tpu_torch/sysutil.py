@@ -105,7 +105,7 @@ class Profiler:
         self.n_dp_device += n
         if kind.startswith("cig"):
             self.cells_device_cig += cells
-            if kind == "cig_small":
+            if kind.startswith("cig_small"):
                 self.cells_device_cig_small += cells
         else:
             self.cells_device_ext += cells

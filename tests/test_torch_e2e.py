@@ -3,6 +3,7 @@ GPU engine on the kernels' plain PyTorch versions — is byte-identical
 to miniprot_tpu.pipeline.map_file(use_tpu=False) on a testgen genome,
 and state carried from the JAX package (index arrays, options, a dumped
 .mpi file) maps to the same bytes."""
+import ctypes as ct
 import dataclasses
 import io
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 
 from miniprot_tpu import index as jidx
+from miniprot_tpu import native as jnative
 from miniprot_tpu import options as jopt
 from miniprot_tpu import pipeline as jpipe
 from miniprot_tpu_torch import convert
@@ -66,24 +68,38 @@ def _port_map(mi, faa, o, device):
     return buf.getvalue(), stats
 
 
-@pytest.mark.parametrize("mode", ["paf", "gff_aln", "gtf", "spsc"])
-def test_port_cpu_engine_byte_identical(workload, mode):
+@pytest.mark.parametrize("mode", ["paf", "gff_aln", "gtf", "spsc", "go0",
+                                  "striped"])
+def test_port_cpu_engine_byte_identical(workload, mode, monkeypatch):
+    """go0 is -O 0 (every CIGAR job on the striped kernel: the scan
+    kernel needs go >= 1), held against the JAX host engine on its
+    8-lane extension path (the reference's: its AVX-512 wide path
+    departs from it at go == 0, ROADMAP Queue C); striped is
+    MINIPROT_TPU_CIG_IMPL=striped."""
     fa, faa, spsc, _ = workload
     flag = {"paf": 0, "gff_aln": F_GFF | F_SHOW_RESIDUE, "gtf": F_GTF,
-            "spsc": F_GFF}[mode]
+            "spsc": F_GFF, "go0": F_GFF, "striped": 0}[mode]
+    if mode == "striped":
+        monkeypatch.setenv("MINIPROT_TPU_CIG_IMPL", "striped")
     jmi = jidx.Index.build(fa, jopt.IdxOpt())
     tmi = tidx.Index.build(fa, topt.IdxOpt())
     sp = spsc if mode == "spsc" else None
     from miniprot_tpu_torch.sysutil import profiler
     profiler.cells_host = profiler.cells_device = 0
-    want = _jax_map(jmi, faa, _opts(jopt, flag, jmi, sp))
-    got, stats = _port_map(tmi, faa, _opts(topt, flag, tmi, sp), "cpu")
+    jo, to = _opts(jopt, flag, jmi, sp), _opts(topt, flag, tmi, sp)
+    if mode == "go0":
+        jo.go = to.go = 0
+        monkeypatch.setattr(ct.c_int32.in_dll(jnative._lib, "mx_no_wide_ext"),
+                            "value", 1)
+    want = _jax_map(jmi, faa, jo)
+    got, stats = _port_map(tmi, faa, to, "cpu")
     assert got == want
     assert got.count("\n") >= 10
     # the ext class and both CIGAR classes went through the device engine
+    cig = "_striped" if mode in ("go0", "striped") else ""
     assert stats["batches"]["ext"] > 0, stats
-    assert stats["batches"]["cig"] > 0, stats
-    assert stats["batches"]["cig_small"] > 0, stats
+    assert stats["batches"]["cig" + cig] > 0, stats
+    assert stats["batches"]["cig_small" + cig] > 0, stats
     assert stats["device_fraction"] >= 0.90, stats
 
 

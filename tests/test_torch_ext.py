@@ -41,7 +41,8 @@ def _check(cases, results, kw_for):
 def test_ext_kernel_matches_host_dp():
     T, mat, sp = _setup()
     rng = np.random.default_rng(9)
-    batch = ne.ExtBatch(al_pad=128, nl_pad=256, mat=mat, opt_scalars=OPT)
+    batch = ne.ExtBatch(al_pad=128, nl_pad=256, mat=mat, opt_scalars=OPT,
+                        device="cpu")
     cases = []
     for _ in range(12):
         nl = int(rng.integers(10, 250))
@@ -59,7 +60,8 @@ def test_ext_kernel_matches_host_dp():
 def _raw_batch(rng, mat, sp, al_pad, nl_pad, n, T, *, nl_lo=10, al_hi=120,
                ios=(19, 29)):
     batch = ne.RawExtBatch(al_pad=al_pad, nl_pad=nl_pad, mat=mat,
-                           opt_scalars=OPT, sp=sp, trans_code=1)
+                           opt_scalars=OPT, sp=sp, trans_code=1,
+                           device="cpu")
     cases = []
     for _ in range(n):
         nl = int(rng.integers(nl_lo, nl_pad - 6))
@@ -183,7 +185,7 @@ def test_ext_saturation_edge_bit_exact():
     sp = tables.splice_model_scores(1)
     rng = np.random.default_rng(77)
     batch = ne.RawExtBatch(al_pad=512, nl_pad=2640, mat=mat, opt_scalars=OPT,
-                           sp=sp, trans_code=1)
+                           sp=sp, trans_code=1, device="cpu")
     aa_pool = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
     cases = []
     for k in range(12):
@@ -218,7 +220,7 @@ def test_ext_saturation_deep_negative_bit_exact():
     rng = np.random.default_rng(78)
     batch = ne.RawExtBatch(al_pad=512, nl_pad=2112, mat=mat,
                            opt_scalars=(120, 60, 125, 29, 1 << 28, 5, 0.5),
-                           sp=sp, trans_code=1)
+                           sp=sp, trans_code=1, device="cpu")
     aa_pool = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
     cases = []
     for _ in range(12):
@@ -290,7 +292,8 @@ def test_ext_boundary_column_only_at_row2(nsq, asq, left):
     aa = np.frombuffer(asq, np.uint8)
     batch = ne.RawExtBatch(32, 264, opt.mat, (opt.go, opt.ge, opt.fs, opt.io,
                                                opt.xdrop, opt.end_bonus,
-                                               opt.ie_coef), sp=sp)
+                                               opt.ie_coef), sp=sp,
+                           device="cpu")
     nt4, aas = T.nt4[ns], T.aa20[aa]
     if left:
         nt4, aas = nt4[::-1], aas[::-1]
@@ -299,3 +302,64 @@ def test_ext_boundary_column_only_at_row2(nsq, asq, left):
              xdrop=opt.xdrop, end_bonus=opt.end_bonus, ie_coef=opt.ie_coef,
              sp_null_bonus=opt.sp_null_bonus)
     _check([(ns, aa, left)], batch.run(), lambda: kw)
+
+
+def _indel_homolog(rng, al, nl):
+    """A window spelling a random protein in codons, with three random
+    insertions or deletions, padded with random bases to nl."""
+    from miniprot_tpu_torch.testgen import _aa2codons
+    codons = _aa2codons()
+    aa = rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"), al).astype(np.uint8)
+    ns = np.frombuffer("".join(codons[chr(c)][0] for c in aa).encode(),
+                       np.uint8)
+    for _ in range(3):
+        p, k = int(rng.integers(0, len(ns))), int(rng.integers(1, 12))
+        ins = rng.choice(list(b"ACGT"), k).astype(np.uint8)
+        ns = (np.concatenate([ns[:p], ins, ns[p:]]) if rng.random() < .5
+              else np.concatenate([ns[:p], ns[p + k:]]))
+    tail = rng.choice(list(b"ACGT"), max(0, nl - len(ns))).astype(np.uint8)
+    return np.concatenate([ns, tail])[:nl], aa
+
+
+@pytest.mark.parametrize("go", [0, 1])
+def test_ext_gap_open_0_follows_8lane_lazy_f(go, monkeypatch):
+    """At go == 0 the reference's lazy-F breaks at its first step, so the
+    exact prefix-max I (right for go >= 1) overshoots: the plain DP runs
+    I inside each SSE lane plus one step into the next lane.  Held
+    against the port's host engine and the JAX package's 8-lane
+    extension path (its AVX-512 wide path is taken only for go > 0 in
+    the port).  Reproducer (ROADMAP Queue C): a left extension scored 87
+    by the 8-lane path, 83 by the JAX engine's wide path, 88 by the JAX
+    ext kernel."""
+    import ctypes as ct
+
+    from miniprot_tpu_torch import native as tnative
+    try:
+        monkeypatch.setattr(ct.c_int32.in_dll(native._lib, "mx_no_wide_ext"),
+                            "value", 1)
+    except ValueError:
+        pass                       # a build without the wide path
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(9 + go)
+    opt = (go,) + OPT[1:]
+    batch = ne.ExtBatch(128, 600, mat, opt, device="cpu")
+    cases = [(np.frombuffer(b"GACTTCAACCTAGCAAACTGCGAACGCACAACAAAAGCATAGAC"
+                            b"GTAGTAATAGAAGACCTAAAAATGCTA", np.uint8),
+              np.frombuffer(b"DFNLANCEHMYNAQHSTNYFTSIDVVIEDLKML", np.uint8),
+              True)]
+    for _ in range(47):
+        al = int(rng.integers(20, 128))
+        ns, aa = _indel_homolog(rng, al, int(rng.integers(3 * al, 600)))
+        cases.append((ns, aa, bool(rng.integers(0, 2))))
+    for ns, aa, left in cases:
+        nas, aas, d, a = ne.prep_problem(ns, aa, sp=sp, sp_null_bonus=-7,
+                                         io=29, ext_left=left)
+        batch.add(nas, aas, d, a)
+    got = batch.run()
+    kw = _kw(T, mat, sp, go=go)
+    _check(cases, got, lambda: kw)
+    for (ns, aa, left), g in zip(cases, got):
+        assert g == tnative.dp16(ns, aa, flag=DPF_EXT_LEFT if left
+                                 else DPF_EXT_RIGHT, **kw)[:3]
+    if go == 0:
+        assert got[0] == (87, 71, 33)

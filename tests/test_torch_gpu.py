@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K3 against their plain PyTorch versions on
-the card (exact: the DPs are integer arithmetic).
+"""The port's CUDA kernels K1-K6 against their plain PyTorch versions on
+the card (exact: the DPs and the sketch are integer arithmetic).
 
 Marked ``gpu``: they need an NVIDIA card of compute capability >= 9.0
 and skip elsewhere.  Run on the card with
@@ -12,7 +12,9 @@ import torch
 
 from miniprot_tpu_torch import tables
 from miniprot_tpu_torch.kernels import nasw_cigar_scan as sk
+from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
 from miniprot_tpu_torch.kernels import nasw_ext as ne
+from miniprot_tpu_torch.kernels import sketch_gpu
 
 pytestmark = pytest.mark.gpu
 
@@ -34,10 +36,10 @@ def _setup():
     return T, mat, tables.splice_model_scores(1)
 
 
-def _ext_batch(dev, al_pad, nl_pad, n, seed):
+def _ext_batch(dev, al_pad, nl_pad, n, seed, opt=OPT):
     T, mat, sp = _setup()
     rng = np.random.default_rng(seed)
-    batch = ne.RawExtBatch(al_pad, nl_pad, mat, OPT, sp=sp, device=dev,
+    batch = ne.RawExtBatch(al_pad, nl_pad, mat, opt, sp=sp, device=dev,
                            capacity=n)
     for _ in range(n):
         nl = int(rng.integers(nl_pad // 2, nl_pad))
@@ -68,6 +70,17 @@ def _ext_inputs(batch):
                                            (1024, 2112)])
 def test_ext_kernel_matches_plain(cuda_card, al_pad, nl_pad):
     args = _ext_inputs(_ext_batch(cuda_card, al_pad, nl_pad, 24, al_pad))
+    got = ne.ext_dp(*args)
+    want = ne.ext_dp_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ext_kernel_go0_matches_plain(cuda_card):
+    """K1's go == 0 form (I inside each SSE lane plus one step into the
+    next) against its plain version."""
+    args = _ext_inputs(_ext_batch(cuda_card, 512, 900, 24, 3,
+                                  (0,) + OPT[1:]))
     got = ne.ext_dp(*args)
     want = ne.ext_dp_plain(*args)
     torch.cuda.synchronize()
@@ -144,3 +157,63 @@ def test_batches_on_card_match_host_engine(cuda_card):
     for (ns, aa), r in zip(cases, batch.run()):
         rsc, _, _, rcig = native.dp16(ns, aa, flag=DPF_CIGAR, **kw)
         assert r is not None and r[0] == rsc and np.array_equal(r[1], rcig)
+
+
+@pytest.mark.parametrize("W,nl_pad,n,go,dp32", [
+    (32, 700, 300, 11, False), (128, 600, 40, 0, False),
+    (512, 500, 20, 11, False), (128, 600, 40, 11, True)])
+def test_striped_and_walk_kernels_match_plain(cuda_card, W, nl_pad, n, go,
+                                              dp32):
+    """K4 (both forms, go == 0 included) and K5 against their plain
+    versions on the same device inputs."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(W + go)
+    opt = (go,) + OPT[1:]
+    raw_cls = st.SmallCigarBatch if W <= 32 else st.RawCigarBatch
+    batch = (st.Dp32Batch(W, nl_pad, mat, opt, device=cuda_card) if dp32
+             else raw_cls(W, nl_pad, mat, opt, sp=sp, device=cuda_card))
+    for _ in range(n):
+        nl = int(rng.integers(3, nl_pad))
+        al = int(rng.integers(1, W + 1))
+        ns = rng.choice(list(b"ACGTN"), nl).astype(np.uint8)
+        aa = rng.choice(list(b"ARNDCQEGHILKMFPSTWYVX*"), al).astype(np.uint8)
+        if dp32:
+            nas, aas, d, a = ne.prep_problem(ns, aa, sp=sp, sp_null_bonus=-7,
+                                             io=29, ext_left=False)
+            batch.add(nas, aas, d, a)
+        else:
+            batch.add_raw(T.nt4[ns], T.aa20[aa], io=29)
+    dev, n = cuda_card, batch.n
+    nlv = ne._upload(batch.nlv[:n], dev)
+    alv = ne._upload(batch.alv[:n], dev)
+    args = (*batch._tracks(), nlv, alv, ne._upload(batch.aas[:n], dev),
+            ne._upload(batch.mat, dev), (batch.go, batch.ge, batch.fs),
+            batch._rows())
+    dp, plain = ((st.striped_cigar_dp32, st.striped_cigar_dp32_plain)
+                 if dp32 else (st.striped_cigar_dp, st.striped_cigar_dp_plain))
+    tb, score = dp(*args)
+    tb_p, score_p = plain(*args)
+    torch.cuda.synchronize()
+    valid = st.valid_cells(nlv, alv, tb.shape[1], tb.shape[2],
+                           batch.VLANES)
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(score, score_p)
+    if not dp32:
+        walk = st.cell_walk(tb_p, nlv, alv, batch.steps())
+        walk_p = st.cell_walk_plain(tb_p, nlv, alv, batch.steps())
+        torch.cuda.synchronize()
+        for a, b in zip(walk, walk_p):
+            assert torch.equal(a, b)
+
+
+def test_sketch_kernel_matches_plain(cuda_card):
+    rng = np.random.default_rng(17)
+    for n in (5, 3000, 200_000):
+        seq = torch.from_numpy(rng.choice(np.arange(5, dtype=np.uint8), n,
+                                          p=[.24, .24, .24, .24, .04]))
+        hs, ps, keep = sketch_gpu.sketch_frames(seq.to(cuda_card), 30, 6, 1)
+        hp, pp, kp = sketch_gpu.sketch_frames_plain(seq.to(cuda_card), 30, 6,
+                                                    1)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, kp)
+        assert torch.equal(hs[keep], hp[kp]) and torch.equal(ps[keep], pp[kp])

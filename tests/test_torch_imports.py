@@ -15,6 +15,7 @@ import sys
 import miniprot_tpu_torch
 from miniprot_tpu_torch import cli, convert, device, pipeline  # noqa
 from miniprot_tpu_torch.kernels import nasw_cigar_scan, nasw_ext  # noqa
+from miniprot_tpu_torch.kernels import nasw_cigar_striped, sketch_gpu  # noqa
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "miniprot_tpu"
              or m.startswith("miniprot_tpu."))
@@ -57,3 +58,32 @@ def test_no_card_here_and_cuda_request_raises():
     with pytest.raises(RuntimeError):
         GpuExtEngine(MapOpt())                   # the default is the card
     assert GpuExtEngine(MapOpt(), "cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cls", [
+    "nasw_ext.ExtBatch", "nasw_ext.RawExtBatch",
+    "nasw_cigar_scan.ScanCigarBatch", "nasw_cigar_scan.RawScanCigarBatch",
+    "nasw_cigar_scan.SmallScanCigarBatch", "nasw_cigar_striped.CigarBatch",
+    "nasw_cigar_striped.RawCigarBatch", "nasw_cigar_striped.SmallCigarBatch",
+    "nasw_cigar_striped.Dp32Batch"])
+def test_batch_without_device_resolves_to_the_card(cls):
+    """A batch built without ``device`` runs on the card: it resolves to
+    cuda, or raises where there is no sm_90 card (never a silent CPU
+    run)."""
+    import importlib
+
+    import torch
+
+    from miniprot_tpu_torch import kernels, tables
+    mod, name = cls.split(".")
+    klass = getattr(importlib.import_module(
+        f"miniprot_tpu_torch.kernels.{mod}"), name)
+    kw = {"sp": tables.splice_model_scores(1)} if "Raw" in name \
+        or "Small" in name else {}
+    args = (32, 256, tables.BLOSUM62, (11, 1, 23, 29, 100, 5, 0.5))
+    if kernels.on_gpu_backend():
+        assert klass(*args, **kw).device == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="compute capability"):
+            klass(*args, **kw)
+    assert klass(*args, device="cpu", **kw).device == torch.device("cpu")

@@ -10,10 +10,11 @@ import re
 import pytest
 
 from miniprot_tpu_torch import kernels
-from miniprot_tpu_torch.kernels import nasw_cigar_scan, nasw_ext
+from miniprot_tpu_torch.kernels import (nasw_cigar_scan, nasw_cigar_striped,
+                                        nasw_ext)
 
 CSRC = pathlib.Path(kernels.__file__).parent / "csrc"
-_C_TYPES = {"void*": ct.c_void_p, "int": ct.c_int}
+_C_TYPES = {"void*": ct.c_void_p, "int": ct.c_int, "longlong": ct.c_longlong}
 
 
 def _entry(name):
@@ -41,7 +42,8 @@ def test_signature_matches_c_entry(name):
 
 @pytest.mark.parametrize("name,widths", [
     ("mp_ext_dp", nasw_ext.EXT_WIDTHS),
-    ("mp_scan_cigar", nasw_cigar_scan.SCAN_WIDTHS)])
+    ("mp_scan_cigar", nasw_cigar_scan.SCAN_WIDTHS),
+    ("mp_striped_cigar", nasw_cigar_striped.STRIPE_LANES)])
 def test_launch_switch_builds_the_wrapper_widths(name, widths):
     _, body = _entry(name)
     cases = tuple(int(c) for c in re.findall(r"case (\d+):", body))

@@ -53,7 +53,7 @@ def _rand_case(rng, nl_lo, nl_hi, al_lo, al_hi, alphabet=b"ARNDCQEGHILKMFPSTWYVX
 def test_scan_cigar_matches_reference(al_pad, nl_pad, n, seed):
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(seed)
-    batch = sk.ScanCigarBatch(al_pad, nl_pad, mat, OPT)
+    batch = sk.ScanCigarBatch(al_pad, nl_pad, mat, OPT, device="cpu")
     cases = []
     for _ in range(n):
         ns, aa = _rand_case(rng, 3, nl_pad, 1, al_pad + 1)
@@ -68,7 +68,8 @@ def test_scan_cigar_wide_class_matches_reference():
     """The al <= 512 class (two positions per thread on the card)."""
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(77)
-    batch = sk.RawScanCigarBatch(512, 1024, mat, OPT, sp=sp, trans_code=1)
+    batch = sk.RawScanCigarBatch(512, 1024, mat, OPT, sp=sp, trans_code=1,
+                                  device="cpu")
     cases = []
     for _ in range(6):
         ns, aa = _rand_case(rng, 300, 1024, 120, 513)
@@ -81,7 +82,8 @@ def test_small_class_matches_reference():
     """SmallScanCigarBatch: al <= 32, up to 512 problems per launch."""
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(56)
-    batch = sk.SmallScanCigarBatch(32, 512, mat, OPT, sp=sp, trans_code=1)
+    batch = sk.SmallScanCigarBatch(32, 512, mat, OPT, sp=sp, trans_code=1,
+                                    device="cpu")
     cases = []
     for _ in range(400):
         ns, aa = _rand_case(rng, 3, 512 - 24, 1, 33)
@@ -93,7 +95,8 @@ def test_small_class_matches_reference():
 def test_scan_cigar_raw_matches_reference():
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(17)
-    batch = sk.RawScanCigarBatch(32, 256, mat, OPT, sp=sp, trans_code=1)
+    batch = sk.RawScanCigarBatch(32, 256, mat, OPT, sp=sp, trans_code=1,
+                                  device="cpu")
     cases = []
     for _ in range(20):
         ns, aa = _rand_case(rng, 3, 250, 1, 33)
@@ -106,7 +109,7 @@ def test_scan_cigar_spsc_track_matches_reference():
     """External --spsc tracks ride the host-prep ScanCigarBatch path."""
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(23)
-    batch = sk.ScanCigarBatch(32, 256, mat, OPT)
+    batch = sk.ScanCigarBatch(32, 256, mat, OPT, device="cpu")
     cases = []
     for _ in range(12):
         ns, aa = _rand_case(rng, 9, 250, 1, 33, b"ARNDCQEGHILKMFPSTWYV")
@@ -132,7 +135,7 @@ def test_scan_cigar_saturating_regime_matches_reference():
     mat_hot[mat_hot > 0] = 125                 # int8 storage bound
     kw = dict(kw, mat=mat_hot)
     rng = np.random.default_rng(29)
-    batch = sk.ScanCigarBatch(32, 512, mat_hot, OPT)
+    batch = sk.ScanCigarBatch(32, 512, mat_hot, OPT, device="cpu")
     cases = []
     for _ in range(10):
         nl = int(rng.integers(100, 500))
@@ -153,7 +156,7 @@ def test_scan_walk_round_cap_flags_unfinished(monkeypatch):
     monkeypatch.setattr(sk, "_rounds_cap", lambda: 3)
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(41)
-    batch = sk.ScanCigarBatch(32, 256, mat, OPT)
+    batch = sk.ScanCigarBatch(32, 256, mat, OPT, device="cpu")
     cases = []
     for _ in range(8):
         nl = int(rng.integers(150, 250))
@@ -174,9 +177,11 @@ def test_scan_walk_round_cap_flags_unfinished(monkeypatch):
 
 def test_scan_cigar_rejects_go0():
     """go == 0 breaks the scan/striped equivalence; the batch refuses
-    the job (the engine routes go == 0 CIGAR jobs to the host)."""
+    the job (the engine sends go == 0 CIGAR jobs to the striped
+    batches)."""
     T, mat, sp, _ = _setup()
-    batch = sk.ScanCigarBatch(32, 256, mat, (0, 1, 23, 29, 100, 5, 0.5))
+    batch = sk.ScanCigarBatch(32, 256, mat, (0, 1, 23, 29, 100, 5, 0.5),
+                               device="cpu")
     nas, aas, d, a = prep_problem(
         np.frombuffer(b"ACGTACGTACGT", np.uint8),
         np.frombuffer(b"MKT", np.uint8), sp=sp, sp_null_bonus=-7, io=29,
@@ -186,6 +191,9 @@ def test_scan_cigar_rejects_go0():
 
 
 def test_engine_routes_go0_cigars_to_host():
+    """go == 0 CIGAR jobs leave the scan kernel (its proof needs go >= 1)
+    and now run on the striped batches on the device, not on the host
+    engine."""
     from miniprot_tpu_torch.device import GpuExtEngine
     from miniprot_tpu_torch.options import MapOpt
     T, mat, sp, kw = _setup(go=0)
@@ -196,7 +204,8 @@ def test_engine_routes_go0_cigars_to_host():
     engine = GpuExtEngine(opt, "cpu")
     engine.submit(("cigars", [(ns, aa, None) for ns, aa in jobs]))
     (res,) = engine.flush()
-    assert engine.n_device == 0 and engine.n_host == 3
+    assert engine.n_device == 3 and engine.n_host == 0
+    assert engine.batches["cig_striped"] == 1 and engine.batches["cig"] == 0
     kw = dict(kw, mat=opt.mat)
     _assert_matches(jobs, res, kw)
 
@@ -207,7 +216,7 @@ def test_scan_batch_matches_jax_interpret():
     from miniprot_tpu.kernels.nasw_cigar_scan import ScanCigarBatch as JaxScan
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(64)
-    port = sk.ScanCigarBatch(32, 256, mat, OPT)
+    port = sk.ScanCigarBatch(32, 256, mat, OPT, device="cpu")
     jb = JaxScan(al_pad=32, nl_pad=256, mat=mat, opt_scalars=OPT)
     for _ in range(8):
         ns, aa = _rand_case(rng, 3, 250, 1, 33)
@@ -229,7 +238,8 @@ def test_run_walk_plain_matches_jax_run_backtrack():
     from miniprot_tpu.kernels import nasw_cigar_scan as jsk
     T, mat, sp, kw = _setup()
     rng = np.random.default_rng(90)
-    batch = sk.RawScanCigarBatch(128, 512, mat, OPT, sp=sp, trans_code=1)
+    batch = sk.RawScanCigarBatch(128, 512, mat, OPT, sp=sp, trans_code=1,
+                                  device="cpu")
     for _ in range(20):
         ns, aa = _rand_case(rng, 40, 500, 5, 129)
         batch.add_raw(T.nt4[ns], T.aa20[aa], io=29)
@@ -274,9 +284,10 @@ def test_tb_bytes_count_hint_plane_and_engine_respects_cap(monkeypatch):
     from miniprot_tpu_torch.options import MapOpt
     T, mat, sp, kw = _setup()
     for W, nl in ((128, 4096), (512, 2048)):
-        port = sk.RawScanCigarBatch(W, nl, mat, OPT, sp=sp)
+        port = sk.RawScanCigarBatch(W, nl, mat, OPT, sp=sp, device="cpu")
         assert port.tb_bytes() == 2 * CigarBatch(W, nl, mat, OPT).tb_bytes()
-    small = sk.SmallScanCigarBatch(32, 2048, mat, OPT, sp=sp)
+    small = sk.SmallScanCigarBatch(32, 2048, mat, OPT, sp=sp,
+                                   device="cpu")
     assert small.tb_bytes() == Raw4ScanCigarBatch(32, 2048, mat, OPT,
                                                   sp=sp).tb_bytes()
     assert small.tb_bytes() == 2 * (2048 * 32 * 512 * 2)
@@ -287,7 +298,8 @@ def test_tb_bytes_count_hint_plane_and_engine_respects_cap(monkeypatch):
     rng = np.random.default_rng(12)
     jobs = [_rand_case(rng, 520, 640, 40, 120, b"ARNDCQEGHILKMFPSTWYV")
             for _ in range(40)]
-    one_batch = sk.RawScanCigarBatch(128, 2048, mat, OPT, sp=sp).tb_bytes()
+    one_batch = sk.RawScanCigarBatch(128, 2048, mat, OPT, sp=sp,
+                                     device="cpu").tb_bytes()
     assert one_batch == 2 * 2 * 2048 * 128 * 16
     peaks = []
     for mem in (int(one_batch / 0.25), 1 << 40):
