@@ -9,9 +9,15 @@ the card and on the host engine and requires byte-identical output.
 
 Phases (any failure exits non-zero and prints no result):
   1. the card: nvidia-smi name and power limit; CUDA and sm_90 required
-  2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines
+  2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines,
+     and per K1/K2 instantiation its count of DPX instructions,
+     named-barrier waits and local loads/stores in the SASS (cuobjdump);
+     the SASS that Hopper's packed int16 intrinsics compile to
   3. kernels: K1 ext_dp (al 128/512/1024, and at go 0), K2
-     scan_cigar_dp (al<=512 and al<=32 classes), K3 run_walk, K4
+     scan_cigar_dp (al<=512 and al<=32 classes, and W=128 at the
+     engine's 512-problem batch), K2 also timed in every geometry
+     (warps per problem) it has; K1's device time per problem in a
+     67.6 kb bucket at 128 problems against 512 / 1024; K3 run_walk, K4
      striped_cigar_dp (W 128/512/32, one at go 0) and its int32 form
      striped_cigar_dp32 (scores past 32767), K5 cell_walk, K6
      sketch_orf — exact equality with the
@@ -24,7 +30,9 @@ Phases (any failure exits non-zero and prints no result):
      the same host output, the -O 0 map on both engines, and the index
      built with the device sketch against the host index.  Each run
      sets the launch counts to 0 just before it and reads them after;
-     the kernels' device time per run (CUDA events around each launch)
+     the kernels' device time per run (CUDA events around each launch),
+     problems per launch per (kind, width, nl bucket), and the DPs the
+     engine ran on the host, by reason, with their host seconds
   5. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
@@ -37,6 +45,7 @@ import argparse
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,6 +86,104 @@ SRC = "miniprot_tpu_torch/kernels/csrc/"
 N_CTG = 4
 
 
+CUDA_BIN = "/usr/local/cuda/bin/"
+# a SASS instruction line of cuobjdump: its address, an optional guard
+# predicate, the opcode with its modifiers
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Za-z0-9_.]*)")
+
+
+def sass_functions(path: str) -> dict:
+    """{function: [opcode, ...]} of a cubin or shared library, NOPs left
+    out (cuobjdump from the CUDA toolkit; the run fails without it)."""
+    exe = CUDA_BIN + "cuobjdump"
+    if not os.path.exists(exe):
+        fail(f"{exe} not found: the SASS cannot be checked")
+    r = subprocess.run([exe, "-sass", path], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass {path}: {r.stderr.strip()}")
+    fn, ops = None, {}
+    for ln in r.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            ops[fn] = []
+        elif fn is not None:
+            m = SASS_OP.search(ln)
+            if m and m.group(1) != "NOP":
+                ops[fn].append(m.group(1))
+    return ops
+
+
+def sass_counts(so: str) -> None:
+    """Print, per K1/K2 instantiation in the built library, how many of
+    its SASS instructions are Hopper DPX forms (VIADDMNMX: add then
+    max/min; VIMNMX3: three-way max/min), named-barrier waits and
+    local-memory loads and stores (LDL/STL: register spills)."""
+    want = ("VIADDMNMX", "VIMNMX3", "BAR.SYNC", "LDL", "STL")
+    for fn, ops in sass_functions(so).items():
+        if "ext_dp" in fn or "scan_cigar" in fn:
+            base = [o[:8] if o.startswith("BAR.") else o.split(".")[0]
+                    for o in ops]
+            print(f"[sass] {fn}: " + ", ".join(f"{op} {base.count(op)}"
+                                               for op in want))
+
+
+# Hopper's packed int16 intrinsics beside the int32 forms the kernels
+# use, each alone in a kernel that loads its operands and stores the
+# result; the baseline kernels compute x ^ y (^ z), one LOP3
+INT16X2_PROBES = (
+    ("base2", 2, "x ^ y"),
+    ("base3", 3, "x ^ y ^ z"),
+    ("__vaddss2", 2, "__vaddss2(x, y)"),
+    ("__vsubss2", 2, "__vsubss2(x, y)"),
+    ("__vmaxs2", 2, "__vmaxs2(x, y)"),
+    ("__vimax3_s16x2", 3, "__vimax3_s16x2(x, y, z)"),
+    ("__viaddmax_s16x2", 3, "__viaddmax_s16x2(x, y, z)"),
+    ("__vibmax_s16x2", 2, "vibmax(x, y)"),
+    ("sat16(x + y) on int32", 2, "(unsigned)min(max((int)x + (int)y, -32768), 32767)"),
+    ("__viaddmax_s32", 3, "(unsigned)__viaddmax_s32((int)x, (int)y, (int)z)"),
+    ("__vimax3_s32", 3, "(unsigned)__vimax3_s32((int)x, (int)y, (int)z)"),
+)
+
+
+def sass_int16x2_probe() -> None:
+    """Compile INT16X2_PROBES for sm_90a and print the SASS each
+    intrinsic takes: the instructions its kernel has beyond its
+    baseline's, with the baseline's LOP3 taken out."""
+    from collections import Counter
+
+    from miniprot_tpu_torch.native.build import BUILD_DIR
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src = ["// vibmax: the max and which operand won, per half",
+           "__device__ __forceinline__ unsigned vibmax(unsigned x, unsigned y) {",
+           "  bool hi, lo;",
+           "  const unsigned m = __vibmax_s16x2(x, y, &hi, &lo);",
+           "  return m ^ ((unsigned)hi << 31) ^ ((unsigned)lo << 15);",
+           "}"]
+    for k, (_, _, expr) in enumerate(INT16X2_PROBES):
+        src.append(f'extern "C" __global__ void probe{k}(const unsigned* a, '
+                   "const unsigned* b, const unsigned* c, unsigned* o) {\n"
+                   "  const int i = threadIdx.x;\n"
+                   "  const unsigned x = a[i], y = b[i], z = c[i];\n"
+                   f"  o[i] = {expr};\n}}")
+    cu = os.path.join(BUILD_DIR, "int16x2_probe.cu")
+    cubin = cu[:-3] + ".cubin"
+    with open(cu, "w") as f:
+        f.write("\n".join(src) + "\n")
+    r = subprocess.run([CUDA_BIN + "nvcc", "-cubin", "-arch=sm_90a", "-O3",
+                        cu, "-o", cubin], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        fail(f"int16x2 probe: nvcc failed:\n{r.stdout}{r.stderr}")
+    ops = {fn: Counter(v) for fn, v in sass_functions(cubin).items()}
+    # the loads, the store and the addressing around each probe
+    frame = {a: ops[f"probe{a - 2}"] - Counter(["LOP3.LUT"]) for a in (2, 3)}
+    for k, (name, arity, _) in enumerate(INT16X2_PROBES[2:], start=2):
+        extra = ops[f"probe{k}"] - frame[arity]
+        print(f"[sass int16x2] {name}: {sum(extra.values())} instructions "
+              f"({', '.join(f'{o} {n}' for o, n in sorted(extra.items()))})")
+
+
 def fail(msg: str) -> None:
     sys.stderr.write(f"chip_smoke: FAIL: {msg}\n")
     sys.exit(1)
@@ -87,6 +194,10 @@ def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
     operations over ``rate``."""
     tb, to = nbytes / MEM_BYTES_PER_S, ops / rate
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+
+
+def _geo(geo: dict) -> str:
+    return ", ".join(f"{w}: {ms:.3f}" for w, ms in geo.items())
 
 
 def time_ms(fn, reps: int, warm: int = 1) -> float:
@@ -209,7 +320,8 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
           f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.1f} ms; "
           f"bound {bms:.4f} ms ({by}); device prep of its tracks "
           f"(_prep_seq_device + _logpen_device, torch ops) {prep_ms:.3f} ms, "
-          f"bound {pbms:.4f} ms ({pby})", flush=True)
+          f"bound {pbms:.4f} ms ({pby}); {ne.EXT_WARPS[al_pad]} warps per "
+          "problem", flush=True)
     return dict(name=f"ext_dp[{tag}]", route="cuda",
                 source=SRC + "ext_dp.cu",
                 replaces="miniprot_tpu/kernels/nasw_pallas.py:89",
@@ -219,7 +331,50 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def probe_ext_capacity(al_pad, nl_pad, ns, seed):
+    """K1's device time per problem at one bucket for several problem
+    counts (the first n of the same problems): whether launches larger
+    than device.ext_capacity gives would pay.  Timing only: exactness
+    is the K1 phases' job."""
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch.kernels import nasw_ext as ne
+    opt, env, scal, T, kw = scoring()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    N = max(ns)
+    batch = ne.RawExtBatch(al_pad, nl_pad, opt.mat, scal, sp=env.sp,
+                           device=dev, capacity=N)
+    for _ in range(N):
+        al = int(rng.integers(al_pad // 2, al_pad + 1))
+        nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
+        nsq, asq = homolog(rng, T, al, nl)
+        batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
+    thr = ne._logpen_thresholds(float(np.float32(opt.ie_coef)), batch.nl)
+    als = ne._upload(batch.als, dev)
+    nlv = ne._upload(batch.nlv, dev)
+    nas, D, A = ne._prep_seq_device(
+        ne._upload(batch.nt, dev), ne._upload(batch.leftb, dev),
+        ne._upload(batch.iov, dev), nlv, sp=batch.sp, codon=T.codon,
+        n_rows=batch.nl)
+    logpen = ne._logpen_device(als, thr, batch.nl, dev)
+    prof = ne._upload(batch.prof, dev)
+    parts = []
+    for n in ns:
+        args = (nas[:n], D[:n], A[:n], logpen[:n], nlv[:n], als[:n],
+                prof[:n], ne._opts(batch))
+        ms = time_ms(lambda: ne.ext_dp(*args), reps=3)
+        parts.append(f"{n} problems {ms:.3f} ms ({1e3 * ms / n:.2f} us per "
+                     "problem)")
+    print(f"[K1 capacity] al={al_pad} nl={nl_pad}: " + ", ".join(parts),
+          flush=True)
+
+
 def phase_scan(W, nl_pad, n, seed):
+    """K2 and K3 on n problems of class width W (n may exceed the
+    class's own capacity: the engine's cig_capacity sizes real
+    launches)."""
     import numpy as np
     import torch
 
@@ -231,7 +386,7 @@ def phase_scan(W, nl_pad, n, seed):
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     cls = sk.SmallScanCigarBatch if W <= sk.SMALL_W else sk.RawScanCigarBatch
-    batch = cls(W, nl_pad, opt.mat, scal, sp=env.sp, device=dev)
+    batch = cls(W, nl_pad, opt.mat, scal, sp=env.sp, device=dev, capacity=n)
     cases = []
     al_lo = 1 if W <= sk.SMALL_W else W // 4 + 1
     for _ in range(n):
@@ -272,6 +427,8 @@ def phase_scan(W, nl_pad, n, seed):
     if sum(r is None for r in res) > n // 10:
         fail(f"run_walk W={W}: too many walks hit the round cap")
     ms = time_ms(lambda: sk.scan_cigar_dp(*args), reps=5)
+    geo = {w: time_ms(lambda: sk.scan_cigar_dp(*args, warps=w), reps=3)
+           for w in sk.SCAN_GEOMETRIES[W]}
     walk_ms = time_ms(lambda: sk.run_walk(tb, hint, nlv, alv, rounds),
                       reps=10)
     rows = int((nlv.clamp(min=2) - 2).sum())
@@ -282,11 +439,12 @@ def phase_scan(W, nl_pad, n, seed):
     wbytes = steps * 7 + n * 16
     wbms, wby = bound(wbytes, steps * 12, INT32_OPS_PER_S)
     small = W <= sk.SMALL_W
-    tag = f"W={W},nl={nl_pad}"
+    tag = f"W={W},nl={nl_pad}" + ("" if n == cls.CAPACITY else f",n={n}")
     print(f"[K2 scan_cigar_dp] W={W} nl={nl_pad} n={n}: exact vs plain and "
-          f"host engine; {ms:.3f} ms, {cells} cells, "
-          f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.1f} ms; "
-          f"bound {bms:.4f} ms ({by})", flush=True)
+          f"host engine; {ms:.3f} ms ({1e3 * ms / n:.2f} us per problem), "
+          f"{cells} cells, {cells / ms / 1e6:.2f} GCUPS; plain "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}); ms by warps per "
+          f"problem {_geo(geo)} (default {sk.scan_warps(W, n)})", flush=True)
     print(f"[K3 run_walk] W={W} n={n}: exact vs plain; {walk_ms:.3f} ms for "
           f"{steps} rounds; plain {walk_plain_ms:.1f} ms; bound "
           f"{wbms:.5f} ms ({wby})", flush=True)
@@ -572,6 +730,15 @@ def _report(tag, gpu, host, threads):
           + ", ".join(f"{k}x{w}x{b} {v}" for (k, w, b), v
                       in sorted(stats["bucket_batches"].items())),
           flush=True)
+    launches = stats["bucket_batches"]
+    print(f"[e2e {tag}] problems per launch (kind, width, nl bucket: mean "
+          "/ max): " + ", ".join(
+              f"{k}x{w}x{b} {t / launches[(k, w, b)]:.1f} / {m}"
+              for (k, w, b), (t, m) in sorted(
+                  stats["bucket_problems"].items())), flush=True)
+    print(f"[e2e {tag}] host-routed DPs by reason: "
+          f"{dict(sorted(stats['host_reasons'].items()))}; host s running "
+          f"them in flush_begin {stats['host_dp_s']:.3f}", flush=True)
     busy = sum(gpu["kernel_ms"].values()) / 1e3
     print(f"[e2e {tag}] kernel device time in the GPU map: "
           + ", ".join(f"{k} {v:.1f} ms"
@@ -688,6 +855,8 @@ def main() -> None:
         if ln.startswith("==") or "registers" in ln or "spill" in ln \
                 or "entry function" in ln:
             print(f"[ptxas] {ln.strip()}")
+    sass_counts(kernels.SO)
+    sass_int16x2_probe()
 
     entries = [phase_ext(128, 2112, 128, 1), phase_ext(512, 8448, 128, 2),
                phase_ext(1024, 16896, 512, 6),
@@ -695,6 +864,10 @@ def main() -> None:
     entries += phase_scan(128, 4096, 128, 3)
     entries += phase_scan(512, 2048, 128, 4)
     entries += phase_scan(32, 2048, 512, 5)
+    # the engine's scan batch at W=128 / nl 4096 (device.cig_capacity)
+    entries += phase_scan(128, 4096, 512, 14)
+    probe_ext_capacity(1024, 67584, (128, 512), 15)
+    probe_ext_capacity(128, 67584, (128, 1024), 16)
     entries += phase_striped(128, 4096, 128, 7, go=0)
     entries += phase_striped(512, 2048, 128, 8, go=11)
     entries += phase_striped(32, 2048, 512, 9, go=11)

@@ -14,10 +14,11 @@ engine's share of the round (jobs routed to the host by design) runs
 while the card works, and flush_end collects.
 
 Host routing (part of the algorithm, identical results, counted in
-n_host): ext jobs outside ext_fits_int16, longer than the largest
-bucket or shorter than MIN_DEVICE_NL; CIGAR jobs shorter than
-CIG_MIN_NL or wider than the largest class, --spsc CIGAR jobs whose
-folded donor goes negative, and scan walks that hit the round cap.
+n_host and, per reason, in host_reasons): ext jobs outside
+ext_fits_int16, longer than the largest bucket or shorter than
+MIN_DEVICE_NL; CIGAR jobs shorter than CIG_MIN_NL or wider than the
+largest class, --spsc CIGAR jobs whose folded donor goes negative, and
+scan walks that hit the round cap.
 
 There is no hidden fallback: a build failure, a launch error or a
 device fault raises out of the engine.
@@ -33,6 +34,7 @@ that cap.
 from __future__ import annotations
 
 import os as _os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,8 +61,15 @@ CIG_MIN_NL = 512
 CIG_TB_FRACTION = 0.25
 PENDING_TB_FRACTION = 0.30
 # ext batches hold about this many (problem x row) track cells, so
-# short windows go in wide launches and 100kb windows in 128-problem ones
-EXT_BATCH_CELLS = 1 << 24
+# windows up to the 33.8 kb bucket go in 1024-problem launches and the
+# 67.6 and 101.4 kb buckets in 512-problem ones (K1 at al=128 and nl
+# 67584 takes ~7x less device time per problem in a launch of 1024 than
+# in one of 128: PERF.md)
+EXT_BATCH_CELLS = 1 << 26
+# scan CIGAR batches hold about this many (problem x row x position) DP
+# cells (1 GiB of tb + hint planes), so short windows of the narrow
+# classes go in launches of up to 1024 (4096 at W = 32) problems
+CIG_BATCH_CELLS = 1 << 28
 
 
 def ext_fits_int16(al: int, mat_max: int, end_bonus: int) -> bool:
@@ -79,6 +88,19 @@ def ext_capacity(nl_b: int) -> int:
     cap = 1024
     while cap > nk.B_LANES and cap * nl_b > EXT_BATCH_CELLS:
         cap >>= 1
+    return cap
+
+
+def cig_capacity(cls, nl_b: int, W: int, tb_cap: int) -> int:
+    """Problems per scan CIGAR batch of class ``cls`` at class width W
+    and nl bucket nl_b: the largest power of two from the class's own
+    CAPACITY (128, or 512 for the al <= 32 class) up whose cells stay
+    within CIG_BATCH_CELLS and whose planes fit ``tb_cap``."""
+    cap = cls.CAPACITY
+    rows = csk._pad_rows(nl_b)
+    while (2 * cap * rows * W <= CIG_BATCH_CELLS
+           and cls.planes_bytes(nl_b, W, 2 * cap) <= tb_cap):
+        cap *= 2
     return cap
 
 
@@ -138,8 +160,14 @@ class GpuExtEngine:
         self.n_host = 0
         self.batches = {"ext": 0, "cig": 0, "cig_small": 0,
                         "cig_striped": 0, "cig_small_striped": 0}
-        # launches per (kind, width, nl bucket)
+        # launches per (kind, width, nl bucket), and the problems those
+        # launches held: [sum, max]
         self.bucket_batches: dict[tuple, int] = {}
+        self.bucket_problems: dict[tuple, list] = {}
+        # host-routed DPs per reason, and the host seconds flush_begin
+        # spends running them (the round-cap redos run in collects)
+        self.host_reasons: dict[str, int] = {}
+        self.host_dp_s = 0.0
 
     # ---- request intake ----
 
@@ -158,6 +186,15 @@ class GpuExtEngine:
 
     # ---- batching ----
 
+    def _route_host(self, reason: str) -> None:
+        self.host_reasons[reason] = self.host_reasons.get(reason, 0) + 1
+
+    def _count_launch(self, key: tuple, n: int) -> None:
+        self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
+        tot = self.bucket_problems.setdefault(key, [0, 0])
+        tot[0] += n
+        tot[1] = max(tot[1], n)
+
     def _prep(self, job, ext_left, io):
         return nk.prep_problem(job.nsq, job.asq, sp=self.sp,
                                sp_null_bonus=self.opt.sp_null_bonus, io=io,
@@ -171,11 +208,15 @@ class GpuExtEngine:
         host_jobs: list[int] = []
         for i, job in enumerate(ext_jobs):
             nl, al = len(job.nsq), len(job.asq)
-            if (nl < MIN_DEVICE_NL or al > AL_BUCKETS[-1]
-                    or nl > NL_BUCKETS[-1]
-                    or not ext_fits_int16(al, self.mat_max,
-                                          self.opt.end_bonus)
-                    or self.opt.ie_coef > 8.0):  # threshold-table growth
+            reason = ("ext_short" if nl < MIN_DEVICE_NL
+                      else "ext_outside_buckets" if (al > AL_BUCKETS[-1]
+                                                     or nl > NL_BUCKETS[-1])
+                      else "ext_not_int16" if not ext_fits_int16(
+                          al, self.mat_max, self.opt.end_bonus)
+                      # threshold-table growth
+                      else "ext_logpen" if self.opt.ie_coef > 8.0 else None)
+            if reason is not None:
+                self._route_host(reason)
                 host_jobs.append(i)
                 continue
             al_b = next(b for b in AL_BUCKETS if al <= b)
@@ -185,6 +226,7 @@ class GpuExtEngine:
                 # host-prepped (--spsc) batches stream the log-length
                 # penalty as int8 (126: one count of margin for
                 # mp_log2_f32-vs-log2 drift)
+                self._route_host("ext_logpen")
                 host_jobs.append(i)
                 continue
             buckets.setdefault((al_b, nl_b), []).append(i)
@@ -223,8 +265,7 @@ class GpuExtEngine:
         for chunk, batch, _ in pending:
             self.n_device += len(chunk)
             self.batches["ext"] += 1
-            key = ("ext", batch.al, batch.nl)
-            self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
+            self._count_launch(("ext", batch.al, batch.nl), batch.n)
             profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n)
         return pending, host_jobs
 
@@ -238,13 +279,12 @@ class GpuExtEngine:
         self.n_host += 1
 
     def _collect(self, batch, handle):
-        import time as _time
         from .sysutil import profiler
-        t0 = _time.monotonic()
+        t0 = time.monotonic()
         try:
             return batch.collect(handle)
         finally:
-            profiler.add_device_block(_time.monotonic() - t0)
+            profiler.add_device_block(time.monotonic() - t0)
 
     def _cig_classes(self, W: int):
         """(raw class, host-prepped class) for CIGAR jobs of class width
@@ -292,6 +332,7 @@ class GpuExtEngine:
                 profiler.add_device_dp(-batch.nl * batch.al, -1,
                                        kind=_cig_kind(batch))
                 self.n_device -= 1
+                self._route_host("walk_round_cap")
                 self._cig_host(cig_jobs, k)
             else:
                 cig_jobs[k].result = r
@@ -306,6 +347,8 @@ class GpuExtEngine:
         for i, job in enumerate(cig_jobs):
             shape = self.cig_shape(len(job.nsq), len(job.asq))
             if shape is None:
+                self._route_host("cig_short" if len(job.nsq) < CIG_MIN_NL
+                                 else "cig_outside_classes")
                 host_jobs.append(i)
                 continue
             buckets.setdefault(shape, []).append(i)
@@ -326,34 +369,40 @@ class GpuExtEngine:
             self.peak_pending_tb = max(self.peak_pending_tb, outstanding[0])
             kind = _cig_kind(batch)
             self.batches[kind] += 1
-            key = (kind, batch.al, batch.nl)
-            self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
+            self._count_launch((kind, batch.al, batch.nl), batch.n)
             self.n_device += len(idxs)
             profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n,
                                    kind=kind)
 
         for (slen, nl_b), idxs in buckets.items():
-            raw_cls, prep_cls = self._cig_classes(slen * 8)
-            cap = raw_cls.CAPACITY
+            W = slen * 8
+            raw_cls, prep_cls = self._cig_classes(W)
+            # scan batches (K2) grow with the window; the striped ones
+            # keep their class capacity
+            scan = issubclass(raw_cls, csk._ScanBatch)
+            cap = (cig_capacity(raw_cls, nl_b, W, self.cig_tb_cap) if scan
+                   else raw_cls.CAPACITY)
+            prep_cap = (cig_capacity(prep_cls, nl_b, W, self.cig_tb_cap)
+                        if scan else prep_cls.CAPACITY)
             raw_all = [i for i in idxs if cig_jobs[i].ss is None]
             old_all = [i for i in idxs if cig_jobs[i].ss is not None]
             for c0 in range(0, len(raw_all), cap):
                 raw_idx = raw_all[c0:c0 + cap]
                 # no --spsc track: donor >= 0 by construction, so the
                 # folded donor stream cannot go negative
-                batch = raw_cls(slen * 8, nl_b, self.mat, self.scalars,
+                batch = raw_cls(W, nl_b, self.mat, self.scalars,
                                 sp=self.sp, trans_code=tables._default_code,
-                                device=self.device)
+                                device=self.device, capacity=cap)
                 for i in raw_idx:
                     job = cig_jobs[i]
                     batch.add_raw(T.nt4[job.nsq], T.aa20[job.asq],
                                   io=self.opt.io)
                 launch(raw_idx, batch)
-            for c0 in range(0, len(old_all), prep_cls.CAPACITY):
-                old_idx = old_all[c0:c0 + prep_cls.CAPACITY]
+            for c0 in range(0, len(old_all), prep_cap):
+                old_idx = old_all[c0:c0 + prep_cap]
                 usable = []
-                batch = prep_cls(slen * 8, nl_b, self.mat, self.scalars,
-                                 device=self.device)
+                batch = prep_cls(W, nl_b, self.mat, self.scalars,
+                                 device=self.device, capacity=prep_cap)
                 for i in old_idx:
                     job = cig_jobs[i]
                     nas, aas, d, a = self._prep(job, False, self.opt.io)
@@ -361,7 +410,10 @@ class GpuExtEngine:
                         # folded donor stream would go negative: the
                         # single-saturation fold no longer matches the
                         # reference's double-saturating subs; host it
+                        self._route_host("cig_spsc_donor")
+                        t0 = time.monotonic()
                         self._cig_host(cig_jobs, i)
+                        self.host_dp_s += time.monotonic() - t0
                         continue
                     batch.add(nas, aas, d, a, io=self.opt.io)
                     usable.append(i)
@@ -381,6 +433,7 @@ class GpuExtEngine:
         fl.cig_jobs, self.cig_jobs = self.cig_jobs, []
         fl.ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
         fl.cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        t0 = time.monotonic()
         for i in ext_host:
             self._ext_host(fl.ext_jobs, i)
         if cig_host:
@@ -391,6 +444,7 @@ class GpuExtEngine:
             for i, r in zip(cig_host, res):
                 fl.cig_jobs[i].result = r
                 self.n_host += 1
+        self.host_dp_s += time.monotonic() - t0
         return fl
 
     def flush_end(self, fl: "_Flight") -> list:

@@ -44,10 +44,11 @@ _timed: list | None = None   # (entry, start, end) events under timed_launches
 
 _vp, _i, _ll = ct.c_void_p, ct.c_int, ct.c_longlong
 _SIGNATURES = {
-    # nas D A logpen nl al prof out | n R RD AL go ge fs xdrop endb | stream
-    "mp_ext_dp": [_vp] * 8 + [_i] * 9 + [_vp],
-    # nas D A nl al prof tb hint score | n R RD W TR go ge fs | stream
-    "mp_scan_cigar": [_vp] * 9 + [_i] * 8 + [_vp],
+    # nas D A logpen nl al prof out | n R RD AL go ge fs xdrop endb nwp
+    # | stream
+    "mp_ext_dp": [_vp] * 8 + [_i] * 10 + [_vp],
+    # nas D A nl al prof tb hint score | n R RD W TR go ge fs nwp | stream
+    "mp_scan_cigar": [_vp] * 9 + [_i] * 9 + [_vp],
     # tb hint nl al states counts fi fj | n TR W rounds | stream
     "mp_run_walk": [_vp] * 8 + [_i] * 4 + [_vp],
     # nas D A nl al aas mat tb score | n R RD W TR go ge fs vl | stream
@@ -206,14 +207,28 @@ def timed_launches():
             totals[entry] = totals.get(entry, 0.0) + t0.elapsed_time(t1)
 
 
+# K2 runs a launch of fewer problems than this (2 per SM) in its spread
+# geometry, more warps per problem: one warp per problem would
+# leave most of the card's 528 schedulers idle
+SPREAD_BELOW = 264
+
+
+def warps_for(geometries: tuple, n: int) -> int:
+    """Warps per problem for a launch of n problems: the last (spread)
+    entry of a width's geometries below SPREAD_BELOW, else the first."""
+    return geometries[-1] if n < SPREAD_BELOW else geometries[0]
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, dtype, ndim: int, name: str) -> None:
-    """Wrapper-side argument check for a kernel input on the card."""
+def require(t: torch.Tensor, dtype, ndim: int, name: str,
+            align: int = 1) -> None:
+    """Wrapper-side argument check for a kernel input on the card;
+    ``align``: the byte alignment the kernel's vector loads need."""
     if not t.is_cuda or t.dtype != dtype or t.dim() != ndim \
-            or not t.is_contiguous():
+            or not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(f"{name}: expected a contiguous CUDA {dtype} "
-                         f"tensor of rank {ndim}, got {t.dtype} "
-                         f"{tuple(t.shape)} on {t.device}")
+                         f"tensor of rank {ndim}, {align}-byte aligned, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

@@ -10,55 +10,141 @@
 // i-3, A/B/C carries, I runs inside one stripe segment).  Saturating
 // int16 is a clip on int32.  Needs go >= 1 (the wrapper checks).
 //
-// Design.  One thread block per problem, protein positions across
-// threads (P consecutive positions per thread, W = P*NT; the al <= 32
-// class is one warp per problem), genome rows looped inside the block.
-// Per row: one barrier for the segmented + full prefix max (one pass,
-// warp shuffles + per-warp totals in shared memory), one to hand the
-// neighbour's (Iused, t4) to bit 4, one for the I-run counter scan and
-// one to hand H and the match-run counter to the right neighbour.
-// The tb and hint planes are written as int16 (rows, W) per problem,
-// neighbouring threads on neighbouring positions.
+// Design.  A problem runs on NWP warps of a 128-thread block, P
+// consecutive positions per thread (W = 32 * NWP * P), and the block
+// holds 4 / NWP problems, each running its own nl.  The wrapper picks
+// the geometry per launch (nasw_cigar_scan.scan_warps): one warp per
+// problem (W=32: P=1; W=128: P=4) when the launch holds enough problems
+// to give every scheduler of the card work, else the problem spread
+// over more warps (W=128: 2 warps at P=2; W=512 always 4 warps at
+// P=4) to shorten each row's chain.  Genome rows loop inside
+// the warp; per row:
+//   1. each thread computes its P positions' order-free candidates,
+//      the extension bits 5-8 and, for the priority chain, the first
+//      maximum among D, A, B, C and the four frameshift moves as a
+//      tree of depth 3 (so the chain needs only match, I and that pair
+//      once I is known);
+//   2. the segmented and the full prefix max of u = sat(base - go) +
+//      q*ge run as one 5-step shuffle scan (segments by lane index
+//      arithmetic: no flags travel; every segment test is a bit mask
+//      computed once per problem);
+//   3. I, H, the state nibble and bits 4 and 9 per position, bit 4's
+//      left neighbour by one shuffle;
+//   4. the I-run length (distance to the last position without bit 4)
+//      by one ballot and one shuffle instead of a scan;
+//   5. branchless run-length hints; each thread stores its P tb and P
+//      hint values with one store per plane (8 B at P = 4) and hands H
+//      and the match-run counter to the right by shuffle.
+// A one-warp problem has no barrier at all.  A multi-warp problem meets
+// once per row at its own named barrier (bar.sync 1 + slot, 32 * NWP),
+// in a buffer that alternates with the row's parity: each warp leaves
+// its scan totals and its last position's local prefixes and base, from
+// which the next warp rebuilds its left neighbour's I, t4 and H; the
+// match-run counter of that position and the warp's last position
+// without bit 4 travel with the next row's exchange, so a row's hints
+// are stored one row late (and once more after the loop).  The per-row
+// streams (the aa code, three donor and three acceptor values) come
+// from common.cuh's RowStream, a per-warp tile of 32 rows in shared
+// memory with the next tile's loads in flight; each row's values and
+// profile word are read at the end of the row before.  The profile
+// sits in shared memory in per-thread slots of P bytes, written and
+// read only by its own thread.
 //
 // What bounds it on an H100: it writes 4 bytes per cell (tb + hint)
 // and reads almost nothing per cell (9 track bytes per row), so the
 // bound is memory, 4 B/cell at 3.35 TB/s.  The recurrence itself needs
-// ~64 int16 operations per cell, which the int16x2/DPX pipe would do
-// faster than that (chip_smoke.py computes both).  This kernel spends
-// about 130 int32 operations per cell instead (int16 saturation as
-// clips on int32, the prefix-max scan steps) plus four barriers per
-// row, so it runs well above the memory bound.
+// ~64 int16 operations per cell (chip_smoke.py computes both bounds).
+// The kernel keeps int32 registers with the int16 clips: a clipped add
+// is two instructions per position (VIADDMNMX, VIMNMX).  Two positions
+// per register (int16x2) would halve the maxima (__vmaxs2 and
+// __vimax3_s16x2 are one instruction each), but the saturating add
+// __vaddss2 takes six and __viaddmax_s16x2 wraps at the int16 floor
+// that the sentinels sit on (chip_smoke.py's int16x2 probe prints the
+// SASS); a packed form of the max chains is not tried yet (ROADMAP).
+// Each warp issues its row in order, so a warp alone on its
+// scheduler is latency-bound: a row is a chain of ~5 dependent
+// shuffles plus a few hundred instructions.  Launches of hundreds of
+// problems (device.cig_capacity) fill the card's 528 schedulers and
+// reach its throughput; the e2e map's W=128 launches hold few problems
+// and stay latency-bound (PERF.md).
 #include "common.cuh"
 
 #define NEG16 (-32768)
 #define NEGI (-(1 << 29))
 
-template <int P, int NT>
-__global__ void __launch_bounds__(NT) scan_cigar_kernel(
+namespace {
+
+// per-warp values a multi-warp problem exchanges at its one barrier of a
+// row, all local to the warp (without the earlier warps' carry)
+struct ScanX {
+  int sv;  // segmented inclusive max of u over the warp
+  int fm;  // plain max of u over the warp
+  int vl;  // segmented max over the warp's positions before its last
+  int fl;  // plain max over the warp's positions before its last
+  int bl;  // base at the warp's last position
+  int c0;  // the previous row's match-run counter at the last position
+  int x1;  // the previous row's last position without bit 4 (-1: none)
+};
+
+// first maximum of two (value, code) pairs: ties keep the left one
+__device__ __forceinline__ void first_max(int a, int ya, int b, int yb, int& m, int& y) {
+  m = imax(a, b);
+  y = a >= b ? ya : yb;
+}
+
+}  // namespace
+
+template <int P, int NWP>
+__global__ void __launch_bounds__(128) scan_cigar_kernel(
     const int8_t* __restrict__ nas, const int32_t* __restrict__ Dtr,
     const int32_t* __restrict__ Atr, const int32_t* __restrict__ nlv,
     const int32_t* __restrict__ alv, const int8_t* __restrict__ prof,
     int16_t* __restrict__ tb, int16_t* __restrict__ hint, int32_t* __restrict__ score,
-    int R, int RD, int TR, int go, int ge, int fs) {
-  constexpr int NW = NT / 32;
+    int n, int R, int RD, int TR, int go, int ge, int fs) {
+  constexpr int PPB = 4 / NWP;  // problems per block
+  constexpr int NT = 32 * NWP;  // threads per problem
   constexpr int W = P * NT;
-  __shared__ int8_t s_prof[22 * W];
-  __shared__ int s_sf[NW], s_sv[NW], s_sm[NW];   // barrier 1: the I scans
-  __shared__ int s_ei[NW], s_et[NW];             // barrier 2: bit-4 inputs
-  __shared__ int s_c1[NW];                       // barrier 3: I-run scan
-  __shared__ int s_eh[NW], s_ec[NW];             // barrier 4: H, match run
-  const int b = blockIdx.x, tid = threadIdx.x;
+  using Pk = typename Pack<P>::T;
+  __shared__ Pk s_prof[PPB][22][NT];
+  __shared__ RowTile<false> s_row[4];
+  __shared__ ScanX s_sx[2][PPB][NWP];  // by row parity
+  const int g = threadIdx.x / NT;
+  const int b = blockIdx.x * PPB + g;
+  if (b >= n) return;  // whole problems leave together
+  const int tp = threadIdx.x % NT, lane = threadIdx.x & 31, wp = tp >> 5;
+  const int q0 = tp * P, qw = wp * 32 * P;
   const int nl = imin(nlv[b], TR), al = alv[b];
   const int slen = imax((al + 7) / 8, 1);
+  // the segmented scan's combine steps, from the lane (in this warp's
+  // numbering) holding the start of the segment of this thread's last
+  // position; the start of q0's own segment
+  const unsigned steps = seg_steps((((q0 + P - 1) / slen) * slen) / P - wp * 32);
+  const int s0start = (q0 / slen) * slen;
+  // segment starts among this thread's positions (bit p), and whether
+  // one lies before its last position; per earlier warp w (bit w): a
+  // start inside it, one before its last position, its last position a
+  // start (all fixed for the problem, so no division in the row loop)
+  unsigned stm = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) stm |= (unsigned)((q0 + p) % slen == 0) << p;
+  const int vl_own = (q0 + P - 2) / slen * slen >= q0;
+  unsigned wf_in = 0, wf_pre = 0, wf_last = 0;
+#pragma unroll 1
+  for (int w = 0; w < wp; ++w) {
+    const int qa = w * 32 * P, qL = qa + 32 * P - 1;
+    wf_in |= (unsigned)(qL / slen * slen >= qa) << w;
+    wf_pre |= (unsigned)((qL - 1) / slen * slen >= qa) << w;
+    wf_last |= (unsigned)(qL % slen == 0) << w;
+  }
   const int8_t* pb = prof + (size_t)b * 22 * W;
-  for (int k = tid; k < 22 * W; k += NT) s_prof[k] = pb[k];
-  __syncthreads();
-  const int8_t* nasb = nas + (size_t)b * R;
-  const int32_t* Db = Dtr + (size_t)b * RD;
-  const int32_t* Ab = Atr + (size_t)b * RD;
+  for (int c = 0; c < 22; ++c)
+    s_prof[g][c][tp] = *reinterpret_cast<const Pk*>(pb + c * W + q0);
   int16_t* tbb = tb + (size_t)b * TR * W;
   int16_t* hib = hint + (size_t)b * TR * W;
-  const int q0 = tid * P;
+  RowStream<false> rs(s_row[threadIdx.x >> 5], nas + (size_t)b * R, nullptr,
+                      Dtr + (size_t)b * RD, Atr + (size_t)b * RD, R, RD);
+  RowVals rv = rs.first();
+  Pk sp = s_prof[g][rv.c][tp];
 
   int H1[P], H2[P], H3[P], D1[P], D2[P], D3[P], Ac[P], Bc[P], Cc[P];
   int C01[P], C02[P], C03[P], CD1[P], CD2[P], CD3[P], CA[P], CB[P], CC[P];
@@ -73,67 +159,128 @@ __global__ void __launch_bounds__(NT) scan_cigar_kernel(
   // counter).  Thread 0 holds the [-1] column: H(-1,-1)=0,
   // H(0,-1)=H(1,-1)=-fs, seen at row 2 only (nasw_cigar_scan.py:333-343)
   int LH1 = NEG16, LH2 = NEG16, LH3 = NEG16, LC1 = 0, LC2 = 0, LC3 = 0;
-  if (tid == 0) {
+  if (tp == 0) {
     LH1 = -fs;
     LH2 = -fs;
     LH3 = 0;
   }
   int scv = NEG16;
+  // a multi-warp problem stores a row's hints one row late: a hint of an
+  // I run that starts in an earlier warp waits for that warp's last
+  // position without bit 4 (bit p of pend: the value is q - that)
+  int hvp[P], pend = 0, c0_last = 0, x1_last = -1;
+  size_t offp = 0;
 
   for (int i = 2; i < nl; ++i) {
-    const int c = nasb[i];
-    const int gei = c == 20 ? fs : ge;
-    const int dm1 = Db[i - 1], d0 = Db[i], dp1 = Db[i + 1];
-    const int a0 = Ab[i], am1 = Ab[i - 1], am2 = Ab[i - 2];
-    const int8_t* sp = s_prof + c * W;
-    int match[P], Dn[P], cA[P], cB[P], cC[P], f1[P], f2[P], f3[P], f4[P];
-    int base[P], u[P], bits[P];
-    Seg sg{0, NEGI};
-    int fm = NEGI;
+    const int gei = rv.c == 20 ? fs : ge;
+    // 1. order-free candidates
+    int match[P], cm[P], wd[P], base[P], u[P], Dn[P], cntD[P];
+    int sv = NEGI, fm = NEGI, svl = NEGI, fml = NEGI;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
       const int h3m1 = p ? H3[p - 1] : LH3;
       const int h1m1 = p ? H1[p - 1] : LH1;
       const int h2m1 = p ? H2[p - 1] : LH2;
-      const int S = q < al ? (int)sp[q] : NEG16;
+      const int S = q < al ? Pack<P>::at(sp, p) : NEG16;
       match[p] = sat16(h3m1 + S);
       const int ud = sat16(H3[p] - go);
       int bt = (D3[p] > ud) << 5;
       Dn[p] = sat16(imax(ud, D3[p]) - gei);
-      const int ua = sat16(H1[p] - dm1);
+      const int ua = sat16(H1[p] - rv.dm1);
       bt |= (Ac[p] > ua) << 6;
       Ac[p] = imax(ua, Ac[p]);
-      cA[p] = sat16(Ac[p] - a0);
-      const int ub = sat16(h1m1 - d0);
+      const int ub = sat16(h1m1 - rv.d0);
       bt |= (Bc[p] > ub) << 7;
       Bc[p] = imax(ub, Bc[p]);
-      cB[p] = sat16(Bc[p] - am2);
-      const int uc = sat16(h1m1 - dp1);
+      const int uc = sat16(h1m1 - rv.dp1);
       bt |= (Cc[p] > uc) << 8;
       Cc[p] = imax(uc, Cc[p]);
-      cC[p] = sat16(Cc[p] - am1);
-      f1[p] = sat16(H1[p] - fs);
-      f2[p] = sat16(H2[p] - fs);
-      f3[p] = sat16(h1m1 - fs);
-      f4[p] = sat16(h2m1 - fs);
-      int bs = imax(imax(match[p], Dn[p]), imax(cA[p], cB[p]));
-      bs = imax(bs, imax(imax(cC[p], f1[p]), imax(imax(f2[p], f3[p]), f4[p])));
-      base[p] = bs;
-      bits[p] = bt;
-      u[p] = sat16(bs - go) + q * ge;
-      const int st = (q % slen) == 0;
-      sg = seg_combine(sg, Seg{st, u[p]});
+      // first maximum of the candidates after I in the priority order
+      // (D, A, B, C, fs1..fs4 = codes 2..9), as a tree of depth 3
+      int m01, y01, m23, y23, m45, y45, m67, y67, m, y;
+      first_max(Dn[p], 2, sat16(Ac[p] - rv.a0), 3, m01, y01);
+      first_max(sat16(Bc[p] - rv.am2), 4, sat16(Cc[p] - rv.am1), 5, m23, y23);
+      first_max(sat16(H1[p] - fs), 6, sat16(H2[p] - fs), 7, m45, y45);
+      first_max(sat16(h1m1 - fs), 8, sat16(h2m1 - fs), 9, m67, y67);
+      first_max(m01, y01, m23, y23, m01, y01);
+      first_max(m45, y45, m67, y67, m45, y45);
+      first_max(m01, y01, m45, y45, m, y);
+      cm[p] = m;
+      wd[p] = bt | y;
+      // the D and A/B/C run counters need only bits 5-8: computed here,
+      // they fill the issue slots of the scan's shuffles below
+      cntD[p] = (bt >> 5) & 1 ? CD3[p] + 1 : 0;
+      CA[p] = (bt >> 6) & 1 ? CA[p] + 1 : 0;
+      CB[p] = (bt >> 7) & 1 ? CB[p] + 1 : 0;
+      CC[p] = (bt >> 8) & 1 ? CC[p] + 1 : 0;
+      base[p] = imax(match[p], m);
+      u[p] = sat16(base[p] - go) + q * ge;
+      if (p == P - 1) {  // before the last position
+        svl = sv;
+        fml = fm;
+      }
+      sv = (stm >> p) & 1 ? u[p] : imax(sv, u[p]);
       fm = imax(fm, u[p]);
     }
-    // exclusive segmented and full prefix max of u (barrier 1)
-    block_excl_seg_and_max<NW>(sg, fm, NEGI, s_sf, s_sv, s_sm);
-    int segc = sg.v, fullc = fm;
+    // 2. segmented and full prefix max of u
+    int svi = sv, fmi = fm;
+    warp_incl_max2(svi, steps, fmi);
+    int exs = __shfl_up_sync(FULL_MASK, svi, 1);
+    int exf = __shfl_up_sync(FULL_MASK, fmi, 1);
+    if (lane == 0) exs = exf = NEGI;
+    int carry_s = NEGI, carry_f = NEGI;  // up to position qw - 1
+    int il = NEGI, tl = 0;               // (Iused, t4) at q0 - 1 for lane 0
+    int hedge = NEG16;                   // H at q0 - 1 for lane 0
+    if constexpr (NWP > 1) {
+      ScanX(*sx)[NWP] = s_sx[i & 1];
+      if (lane == 31)
+        sx[g][wp] = ScanX{svi, fmi, vl_own ? svl : imax(exs, svl),
+                          imax(exf, fml), base[P - 1], c0_last, x1_last};
+      bar_sync(1 + g, NT);
+      Seg cs{0, NEGI};
+      int xcarry = -1, cedge = 0;
+#pragma unroll
+      for (int w = 0; w < NWP - 1; ++w) {
+        if (w < wp) {
+          const ScanX x = sx[g][w];
+          if (w == wp - 1) {
+            // the left neighbour's I, t4 and H, from its local prefix
+            // maxima and the carry of the warps before it
+            const int qL = (w + 1) * 32 * P - 1;
+            const int sxv = (wf_pre >> w) & 1 ? x.vl : imax(cs.v, x.vl);
+            il = imax(((wf_last >> w) & 1 ? NEGI : sxv) - qL * ge, NEG16);
+            tl = sat16(imax(x.bl, il) - go);
+            hedge = imax(x.bl, imax(imax(carry_f, x.fl) - qL * ge, NEG16));
+            cedge = x.c0;
+          }
+          cs = seg_combine(cs, Seg{(int)((wf_in >> w) & 1), x.sv});
+          carry_f = imax(carry_f, x.fm);
+          xcarry = imax(xcarry, x.x1);
+        }
+      }
+      carry_s = cs.v;
+      // the previous row's hints, now that the I-run carry is known
+      if (i > 2) {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if ((pend >> p) & 1) hvp[p] = q0 + p - xcarry;
+        store16<P>(hib + offp, hvp);
+      }
+      if (lane == 0 && wp > 0) {
+        LC3 = LC2;
+        LC2 = LC1;
+        LC1 = cedge;
+      }
+    }
+    int segc = s0start < qw ? imax(exs, carry_s) : exs;
+    int fullc = imax(exf, carry_f);
+    // 3. I, H and the word
     int Iused[P], t4[P], Hfin[P], b9[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
-      const int st = (q % slen) == 0;
+      const int st = (stm >> p) & 1;
       Iused[p] = imax((st ? NEGI : segc) - q * ge, NEG16);
       const int Istar = imax(fullc - q * ge, NEG16);
       segc = st ? u[p] : imax(segc, u[p]);
@@ -143,72 +290,67 @@ __global__ void __launch_bounds__(NT) scan_cigar_kernel(
       b9[p] = Istar > hp1;
       t4[p] = sat16(hp1 - go);
     }
-    // bit 4 reads (Iused, t4) at q-1 (barrier 2)
-    int il, tl;
-    from_left2<NW>(Iused[P - 1], t4[P - 1], NEGI, 0, il, tl, s_ei, s_et);
-    int s0[P], x1 = -1;
+    {
+      const int iu = __shfl_up_sync(FULL_MASK, Iused[P - 1], 1);
+      const int tu = __shfl_up_sync(FULL_MASK, t4[P - 1], 1);
+      if (lane != 0) {
+        il = iu;
+        tl = tu;
+      }
+    }
+    int s0[P], cnt0[P], x1 = -1;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
       const int ip = p ? Iused[p - 1] : il;
-      const int tp = p ? t4[p - 1] : tl;
-      const int b4 = (q % slen) != 0 && ip > tp;
-      // pass-1 state nibble: strict-> priority chain
-      int h = match[p];
-      int y = Iused[p] > h ? 1 : 0;
-      h = imax(h, Iused[p]);
-      if (Dn[p] > h) { y = 2; h = Dn[p]; }
-      if (cA[p] > h) { y = 3; h = cA[p]; }
-      if (cB[p] > h) { y = 4; h = cB[p]; }
-      if (cC[p] > h) { y = 5; h = cC[p]; }
-      if (f1[p] > h) { y = 6; h = f1[p]; }
-      if (f2[p] > h) { y = 7; h = f2[p]; }
-      if (f3[p] > h) { y = 8; h = f3[p]; }
-      if (f4[p] > h) { y = 9; h = f4[p]; }
+      const int tq = p ? t4[p - 1] : tl;
+      const int b4 = !((stm >> p) & 1) && ip > tq;
+      // pass-1 state nibble: the first maximum of (match, I, D, A, B,
+      // C, fs1..fs4) under the strict-> chain
+      const int y = cm[p] > imax(match[p], Iused[p]) ? (wd[p] & 15)
+                    : (Iused[p] > match[p] ? 1 : 0);
       s0[p] = b9[p] ? 1 : y;
-      bits[p] |= s0[p] | (b4 << 4) | (b9[p] << 9);
+      wd[p] = (wd[p] & ~15) | s0[p] | (b4 << 4) | (b9[p] << 9);
       x1 = imax(x1, b4 ? -1 : q);
+      const int c03m1 = p ? C03[p - 1] : LC3;
+      cnt0[p] = s0[p] == 0 ? c03m1 + 1 : 0;
     }
-    // I-run length: distance to the last position <= q without bit 4
-    // (a segment start never has it, so a plain prefix max is exact;
-    // barrier 3)
-    int lz = block_excl_max<NW>(x1, -1, s_c1);
-    int cnt0[P];
+    // 4. hand H and the match-run counter to the right; the last
+    // position without bit 4 before this thread (-1: none in this warp)
+    int hl = __shfl_up_sync(FULL_MASK, Hfin[P - 1], 1);
+    const int cl = __shfl_up_sync(FULL_MASK, cnt0[P - 1], 1);
+    if constexpr (NWP > 1) {
+      x1_last = __reduce_max_sync(FULL_MASK, x1);
+      c0_last = cnt0[P - 1];
+      if (lane == 0 && wp > 0) hl = hedge;
+    }
+    const unsigned mb = __ballot_sync(FULL_MASK, x1 >= 0) & lanemask_lt();
+    const int xv = __shfl_sync(FULL_MASK, x1, mb ? 31 - __clz(mb) : 0);
+    int lz = mb ? xv : -1;
+    pend = 0;
+    // 5. hints, stores, rings
+    int hv[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
-      const int b4 = (bits[p] >> 4) & 1;
-      lz = imax(lz, b4 ? -1 : q);
+      const int bits = wd[p];
+      lz = imax(lz, (bits >> 4) & 1 ? -1 : q);
       const int cnt1 = q - lz;
-      const int cntD = (bits[p] >> 5) & 1 ? CD3[p] + 1 : 0;
-      CA[p] = (bits[p] >> 6) & 1 ? CA[p] + 1 : 0;
-      CB[p] = (bits[p] >> 7) & 1 ? CB[p] + 1 : 0;
-      CC[p] = (bits[p] >> 8) & 1 ? CC[p] + 1 : 0;
-      const int c03m1 = p ? C03[p - 1] : LC3;
-      cnt0[p] = s0[p] == 0 ? c03m1 + 1 : 0;
-      int hv = 0;
-      switch (s0[p]) {
-        case 0: hv = cnt0[p] - 1; break;
-        case 1: hv = cnt1; break;
-        case 2: hv = cntD; break;
-        case 3: hv = CA[p]; break;
-        case 4: hv = CB[p]; break;
-        case 5: hv = CC[p]; break;
-        default: hv = 0;
-      }
-      const size_t off = (size_t)i * W + q;
-      tbb[off] = (int16_t)bits[p];
-      hib[off] = (int16_t)hv;
+      const int sp0 = s0[p];
+      // an I run from an earlier warp: finished at the next barrier
+      if (NWP > 1 && sp0 == 1 && lz < 0) pend |= 1u << p;
+      // the run length of the cell's own state (selects, no branches)
+      int v = sp0 == 0 ? cnt0[p] - 1 : 0;
+      v = sp0 == 1 ? cnt1 : v;
+      v = sp0 == 2 ? cntD[p] : v;
+      v = sp0 == 3 ? CA[p] : v;
+      v = sp0 == 4 ? CB[p] : v;
+      v = sp0 == 5 ? CC[p] : v;
+      hv[p] = v;
       if (i == nl - 1 && q == al - 1) scv = Hfin[p];
       CD3[p] = CD2[p];
       CD2[p] = CD1[p];
-      CD1[p] = cntD;
-    }
-    // hand H and the match-run counter to the right (barrier 4)
-    int hl, cl;
-    from_left2<NW>(Hfin[P - 1], cnt0[P - 1], NEG16, 0, hl, cl, s_eh, s_ec);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
+      CD1[p] = cntD[p];
       H3[p] = H2[p];
       H2[p] = H1[p];
       H1[p] = Hfin[p];
@@ -219,7 +361,19 @@ __global__ void __launch_bounds__(NT) scan_cigar_kernel(
       C02[p] = C01[p];
       C01[p] = cnt0[p];
     }
-    if (tid == 0) {
+    const size_t off = (size_t)i * W + q0;
+    store16<P>(tbb + off, wd);
+    if constexpr (NWP > 1) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) hvp[p] = hv[p];
+      offp = off;
+    } else {
+      store16<P>(hib + off, hv);
+    }
+    // the next row's streams and profile word
+    rv = rs.next(i + 1);
+    sp = s_prof[g][rv.c][tp];
+    if (tp == 0) {
       // boundary column: NEG from row 3 on (the -fs values are cleared
       // once row 2 consumed them), match-run counter 0
       LH1 = LH2 = LH3 = NEG16;
@@ -227,27 +381,47 @@ __global__ void __launch_bounds__(NT) scan_cigar_kernel(
       LH3 = LH2;
       LH2 = LH1;
       LH1 = hl;
-      LC3 = LC2;
-      LC2 = LC1;
-      LC1 = cl;
+      if (NWP == 1 || lane != 0) {  // lane 0 of a later warp: one row late
+        LC3 = LC2;
+        LC2 = LC1;
+        LC1 = cl;
+      }
+    }
+  }
+  if constexpr (NWP > 1) {
+    // the last row's hints: one more exchange of the I-run carry
+    if (nl > 2) {
+      ScanX(*sx)[NWP] = s_sx[nl & 1];
+      if (lane == 31) sx[g][wp].x1 = x1_last;
+      bar_sync(1 + g, NT);
+      int xcarry = -1;
+#pragma unroll
+      for (int w = 0; w < NWP - 1; ++w)
+        if (w < wp) xcarry = imax(xcarry, sx[g][w].x1);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        if ((pend >> p) & 1) hvp[p] = q0 + p - xcarry;
+      store16<P>(hib + offp, hvp);
     }
   }
   if (q0 <= al - 1 && al - 1 < q0 + P) score[b] = scv;
 }
 
-template <int P, int NT>
+template <int P, int NWP>
 static void launch(const int8_t* nas, const int32_t* D, const int32_t* A,
                    const int32_t* nl, const int32_t* al, const int8_t* prof,
                    int16_t* tb, int16_t* hint, int32_t* score, int n, int R, int RD,
                    int TR, int go, int ge, int fs, cudaStream_t st) {
-  scan_cigar_kernel<P, NT><<<n, NT, 0, st>>>(nas, D, A, nl, al, prof, tb, hint,
-                                              score, R, RD, TR, go, ge, fs);
+  constexpr int PPB = 4 / NWP;
+  scan_cigar_kernel<P, NWP><<<(n + PPB - 1) / PPB, 128, 0, st>>>(
+      nas, D, A, nl, al, prof, tb, hint, score, n, R, RD, TR, go, ge, fs);
 }
 
 extern "C" int mp_scan_cigar(const void* nas, const void* D, const void* A,
                              const void* nl, const void* al, const void* prof,
                              void* tb, void* hint, void* score, int n, int R, int RD,
-                             int W, int TR, int go, int ge, int fs, void* stream) {
+                             int W, int TR, int go, int ge, int fs, int nwp,
+                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   auto a = (const int8_t*)nas;
   auto d = (const int32_t*)D;
@@ -258,11 +432,24 @@ extern "C" int mp_scan_cigar(const void* nas, const void* D, const void* A,
   auto t = (int16_t*)tb;
   auto h = (int16_t*)hint;
   auto s = (int32_t*)score;
+  // nwp: warps per problem (kernels/nasw_cigar_scan.py:scan_warps)
+#define MP_SCAN(P, NWP) launch<P, NWP>(a, d, ac, nv, av, pr, t, h, s, n, R, RD, TR, go, ge, fs, st)
   switch (W) {
-    case 32: launch<1, 32>(a, d, ac, nv, av, pr, t, h, s, n, R, RD, TR, go, ge, fs, st); break;
-    case 128: launch<1, 128>(a, d, ac, nv, av, pr, t, h, s, n, R, RD, TR, go, ge, fs, st); break;
-    case 512: launch<2, 256>(a, d, ac, nv, av, pr, t, h, s, n, R, RD, TR, go, ge, fs, st); break;
+    case 32:
+      if (nwp == 1) MP_SCAN(1, 1);
+      else return (int)cudaErrorInvalidValue;
+      break;
+    case 128:
+      if (nwp == 1) MP_SCAN(4, 1);
+      else if (nwp == 2) MP_SCAN(2, 2);
+      else return (int)cudaErrorInvalidValue;
+      break;
+    case 512:
+      if (nwp == 4) MP_SCAN(4, 4);
+      else return (int)cudaErrorInvalidValue;
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MP_SCAN
   return (int)cudaGetLastError();
 }

@@ -18,11 +18,12 @@ state from each cell), so the walk consumes a whole gap or match run in
 one round.
 
 Per-problem results do not depend on how problems are batched, so the
-port picks its own geometry: problem-major arrays, one CUDA block per
-problem, tb/hint planes (n, rows, W) int16 per problem.  The TPU's
-128-lane tiles and the 4-way interleave of its al <= 32 class are not
-carried over; the small class is simply W = 32 with 512 problems per
-launch.
+port picks its own geometry: problem-major arrays, one to four warps
+per problem (scan_warps), tb/hint planes (n, rows, W) int16 per
+problem.  The TPU's 128-lane tiles and the 4-way interleave of its
+al <= 32 class are not carried over; the small class is simply W = 32
+with at least 512 problems per launch (the engine sizes scan batches
+with device.cig_capacity).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import tables as _tables
-from . import LAUNCHES, call, require, resolve_device, stream_ptr
+from . import LAUNCHES, call, require, resolve_device, stream_ptr, warps_for
 from .nasw_ext import _prep_seq_device, _upload
 
 NEG16 = -32768           # int16 saturation floor
@@ -43,6 +44,17 @@ SMALL_CAPACITY = 512
 # class widths K2 is built for (scan_cigar.cu's launch switch): the
 # engine's CIG_SLEN_CLASSES times 8
 SCAN_WIDTHS = (32, 128, 512)
+# K2's geometries: warps per problem for each class width, the one-warp
+# form first and the spread form for small launches last
+# (kernels.warps_for; measured in PERF.md)
+SCAN_GEOMETRIES = {32: (1,), 128: (1, 2), 512: (4,)}
+
+
+def scan_warps(W: int, n: int) -> int:
+    """Warps per problem K2 runs a launch of n problems of width W
+    with."""
+    return warps_for(SCAN_GEOMETRIES[W], n)
+
 
 # per-state step deltas for a run of e emits (nasw_cigar_pallas
 # _BT_DI/_BT_DJ): di = e*DIM[s] + DIC[s], dj = e*DJM[s] + DJC[s]
@@ -140,7 +152,7 @@ def _pad_rows(nl_pad: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
+def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows, warps=None):
     """Traceback words, run-length hints and end scores for n problems.
 
     nas (n, R) int8; D, A (n, R+8) int32 tracks (donor folded with io);
@@ -148,7 +160,10 @@ def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
     go >= 1; rows = the tb rows to allocate (>= max nl, <= R).
     Returns tb, hint (n, rows, W) int16 (rows [2, nl_b) of problem b are
     defined; the walk reads nothing else) and score (n,) int32.
-    CUDA tensors launch K2; CPU tensors run scan_cigar_dp_plain.
+    CUDA tensors launch K2 with ``warps`` per problem (one of
+    SCAN_GEOMETRIES[W]; by default scan_warps, which the engine uses:
+    tests and chip_smoke.py name each geometry); CPU tensors run
+    scan_cigar_dp_plain.
     """
     go = int(opts[0])
     if go < 1:
@@ -160,12 +175,15 @@ def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
     W = prof.shape[2]
     if W not in SCAN_WIDTHS:
         raise ValueError(f"scan_cigar_dp: unsupported W={W}")
+    warps = scan_warps(W, n) if warps is None else warps
+    if warps not in SCAN_GEOMETRIES[W]:
+        raise ValueError(f"scan_cigar_dp: no {warps}-warp geometry at W={W}")
     require(nas, torch.int8, 2, "nas")
     require(D, torch.int32, 2, "D")
     require(A, torch.int32, 2, "A")
     require(nlv, torch.int32, 1, "nlv")
     require(alv, torch.int32, 1, "alv")
-    require(prof, torch.int8, 3, "prof")
+    require(prof, torch.int8, 3, "prof", align=4)
     if D.shape != (n, R + 8) or A.shape != (n, R + 8) \
             or prof.shape[:2] != (n, 22) or rows > R:
         raise ValueError("scan_cigar_dp: inconsistent shapes")
@@ -179,7 +197,7 @@ def scan_cigar_dp(nas, D, A, nlv, alv, prof, opts, rows):
          nas.data_ptr(), D.data_ptr(), A.data_ptr(), nlv.data_ptr(),
          alv.data_ptr(), prof.data_ptr(), tb.data_ptr(), hint.data_ptr(),
          score.data_ptr(), n, R, R + 8, W, rows, go, int(opts[1]),
-         int(opts[2]), stream_ptr(nas))
+         int(opts[2]), warps, stream_ptr(nas))
     LAUNCHES["scan_cigar_dp_small" if W <= SMALL_W else "scan_cigar_dp"] += 1
     return tb, hint, score
 

@@ -48,6 +48,9 @@ B_LANES = 128           # default problems per batch (the engine's unit)
 # padded protein widths K1 is built for (ext_dp.cu's launch switch): the
 # engine's AL_BUCKETS
 EXT_WIDTHS = (128, 512, 1024)
+# K1's geometry: warps per problem for each width (ext_dp.cu's launch
+# switch; measured in PERF.md)
+EXT_WARPS = {128: 1, 512: 4, 1024: 4}
 
 
 def _donor_fwd(nt: np.ndarray, sp) -> np.ndarray:
@@ -392,7 +395,8 @@ def ext_dp(nas, D, A, logpen, nlv, alv, prof, opts):
     genome and protein lengths; prof (n, 22, AL) int8 with
     prof[b, c, q] = mat[c, query_b[q]]; opts = (go, ge, fs, xdrop,
     end_bonus).  Returns (n, 3) int32 rows (max_sc, max_i, aa_len - 1).
-    CUDA tensors launch K1; CPU tensors run ext_dp_plain.
+    CUDA tensors launch K1 (EXT_WARPS[AL] warps per problem); CPU
+    tensors run ext_dp_plain.
     """
     if not nas.is_cuda:
         return ext_dp_plain(nas, D, A, logpen, nlv, alv, prof, opts)
@@ -405,7 +409,7 @@ def ext_dp(nas, D, A, logpen, nlv, alv, prof, opts):
         require(t, torch.int32, 2, name)
     require(nlv, torch.int32, 1, "nlv")
     require(alv, torch.int32, 1, "alv")
-    require(prof, torch.int8, 3, "prof")
+    require(prof, torch.int8, 3, "prof", align=8)
     if D.shape != (n, R + 8) or A.shape != (n, R + 8) \
             or logpen.shape != (n, R) or prof.shape[:2] != (n, 22):
         raise ValueError("ext_dp: inconsistent shapes")
@@ -416,7 +420,8 @@ def ext_dp(nas, D, A, logpen, nlv, alv, prof, opts):
     call("mp_ext_dp",
          nas.data_ptr(), D.data_ptr(), A.data_ptr(), logpen.data_ptr(),
          nlv.data_ptr(), alv.data_ptr(), prof.data_ptr(), out.data_ptr(),
-         n, R, R + 8, AL, go, ge, fs, xdrop, end_bonus, stream_ptr(nas))
+         n, R, R + 8, AL, go, ge, fs, xdrop, end_bonus, EXT_WARPS[AL],
+         stream_ptr(nas))
     LAUNCHES["ext_dp"] += 1
     return out
 

@@ -200,6 +200,11 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
                              device_fraction=profiler.device_fraction(),
                              batches=dict(engine.batches),
                              bucket_batches=dict(engine.bucket_batches),
+                             bucket_problems={
+                                 k: tuple(v) for k, v
+                                 in engine.bucket_problems.items()},
+                             host_reasons=dict(engine.host_reasons),
+                             host_dp_s=engine.host_dp_s,
                              peak_pending_tb=engine.peak_pending_tb)
         if ckpt_f is not None:
             ckpt_f.close()

@@ -217,3 +217,119 @@ def test_sketch_kernel_matches_plain(cuda_card):
         torch.cuda.synchronize()
         assert torch.equal(keep, kp)
         assert torch.equal(hs[keep], hp[kp]) and torch.equal(ps[keep], pp[kp])
+
+
+def _homolog(rng, T, al, nl):
+    """nt4 window spelling a random protein of length al in codons (10%
+    of them substituted), then random sequence up to nl; and the aa20
+    query."""
+    aa = rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"), al).astype(np.uint8)
+    rev = np.full(22, -1, np.int64)
+    for c in range(63, -1, -1):
+        rev[T.codon[c]] = c
+    cod = rev[T.aa20[aa]]
+    mut = rng.random(al) < 0.1
+    cod[mut] = rng.integers(0, 64, int(mut.sum()))
+    nt4 = np.stack([(cod >> 4) & 3, (cod >> 2) & 3, cod & 3], 1).reshape(-1)
+    nt4 = np.concatenate([nt4, rng.integers(0, 4, max(0, nl - len(nt4)))])
+    return nt4[:nl].astype(np.uint8), T.aa20[aa]
+
+
+def _edge_lengths(rng, width, nl_pad, n):
+    """(nl, al) pairs mixing a 3-row window beside windows near the
+    bucket (neighbours in one block), al = 1, al = width and al on both
+    sides of an SSE-lane boundary (ceil(al/8) steps there)."""
+    als = [1, width, 8 * (width // 16), 8 * (width // 16) + 1, width - 7,
+           width - 8, 9]
+    out = []
+    for k in range(n):
+        nl = 3 if k % 4 == 0 else nl_pad - int(rng.integers(0, 8))
+        al = als[k % len(als)] if k < 2 * len(als) \
+            else int(rng.integers(1, width + 1))
+        out.append((nl, al))
+    return out
+
+
+@pytest.mark.parametrize("W,warps", [(W, w) for W in sk.SCAN_WIDTHS
+                                     for w in sk.SCAN_GEOMETRIES[W]])
+def test_scan_kernel_geometry_edges(cuda_card, W, warps):
+    """K2 in each geometry against its plain version: n not a multiple
+    of the problems per block, nl = 3 beside nl near the bucket, al = 1,
+    al = W and al on both sides of a segment-length step, homologs and
+    random windows."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(100 + W + warps)
+    nl_pad = 400
+    batch = (sk.SmallScanCigarBatch if W == 32 else sk.RawScanCigarBatch)(
+        W, nl_pad, mat, OPT, sp=sp, device=cuda_card, capacity=31)
+    for k, (nl, al) in enumerate(_edge_lengths(rng, W, nl_pad, 31)):
+        if k % 2:
+            nt4, aas = _homolog(rng, T, al, nl)
+        else:
+            nt4 = rng.integers(0, 5, nl).astype(np.uint8)
+            aas = T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYVX*"), al)]
+        batch.add_raw(nt4, aas, io=29)
+    args = _scan_inputs(batch)
+    tb, hint, score = sk.scan_cigar_dp(*args, warps=warps)
+    tb_p, hint_p, score_p = sk.scan_cigar_dp_plain(*args)
+    torch.cuda.synchronize()
+    valid = sk.valid_rows(args[3], args[7])
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(torch.where(valid, hint, 0), hint_p)
+    assert torch.equal(score, score_p)
+
+
+def test_scan_kernel_at_engine_capacity(cuda_card):
+    """A W=128 launch as large as the engine's scan batches get
+    (device.cig_capacity at the 2048-row bucket), in its default
+    geometry, against the plain version."""
+    from miniprot_tpu_torch import device
+    cap = device.cig_capacity(sk.RawScanCigarBatch, 2048, 128,
+                              int(80e9 * device.CIG_TB_FRACTION))
+    assert cap >= 512 and sk.scan_warps(128, cap) == 1
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(77)
+    batch = sk.RawScanCigarBatch(128, 300, mat, OPT, sp=sp, device=cuda_card,
+                                 capacity=cap)
+    for _ in range(cap):
+        al = int(rng.integers(1, 129))
+        nt4, aas = _homolog(rng, T, al, int(rng.integers(3, 300)))
+        batch.add_raw(nt4, aas, io=29)
+    args = _scan_inputs(batch)
+    tb, hint, score = sk.scan_cigar_dp(*args)
+    tb_p, hint_p, score_p = sk.scan_cigar_dp_plain(*args)
+    torch.cuda.synchronize()
+    valid = sk.valid_rows(args[3], args[7])
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(torch.where(valid, hint, 0), hint_p)
+    assert torch.equal(score, score_p)
+
+
+@pytest.mark.parametrize("AL,go", [(AL, go) for AL in ne.EXT_WIDTHS
+                                   for go in (11, 0)])
+def test_ext_kernel_geometry_edges(cuda_card, AL, go):
+    """K1 at each width, at go 11 and go 0, against its plain version:
+    homologs of different lengths followed by random sequence, so the
+    x-drop fires at different rows for problems of one block; nl = 3,
+    al = 1, al = AL and al across an SSE-lane step; n not a multiple of
+    the problems per block."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(AL + ne.EXT_WARPS[AL] + go)
+    nl_pad = 3 * AL + 400      # room for the x-drop after each homolog
+    n = 23
+    batch = ne.RawExtBatch(AL, nl_pad, mat, (go,) + OPT[1:], sp=sp,
+                           device=cuda_card, capacity=n)
+    for k, (nl, al) in enumerate(_edge_lengths(rng, AL, nl_pad, n)):
+        nt4, aas = _homolog(rng, T, al, nl)
+        left = bool(k % 3 == 1)
+        if left:
+            nt4, aas = nt4[::-1], aas[::-1]
+        batch.add_raw(nt4, aas, io=29, ext_left=left)
+    args = _ext_inputs(batch)
+    rows = torch.zeros(n, dtype=torch.int64, device=cuda_card)
+    got = ne.ext_dp(*args)
+    want = ne.ext_dp_plain(*args, rows_done=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the x-drop (or the window's end) stopped the problems at many rows
+    assert len(set(rows.tolist())) > n // 4

@@ -292,9 +292,11 @@ def test_tb_bytes_count_hint_plane_and_engine_respects_cap(monkeypatch):
                                                   sp=sp).tb_bytes()
     assert small.tb_bytes() == 2 * (2048 * 32 * 512 * 2)
 
-    # 16-problem batches keep the plain DP short: 40 jobs, 3 batches
+    # 16-problem batches keep the plain DP short: 40 jobs, 3 batches (a
+    # cells cap of one 16-problem batch keeps cig_capacity from growing)
     monkeypatch.setattr(sk, "B", 16)
     monkeypatch.setattr(sk.RawScanCigarBatch, "CAPACITY", 16)
+    monkeypatch.setattr(device, "CIG_BATCH_CELLS", 16 * 2048 * 128)
     rng = np.random.default_rng(12)
     jobs = [_rand_case(rng, 520, 640, 40, 120, b"ARNDCQEGHILKMFPSTWYV")
             for _ in range(40)]
@@ -312,3 +314,56 @@ def test_tb_bytes_count_hint_plane_and_engine_respects_cap(monkeypatch):
         peaks.append(engine.peak_pending_tb)
         _assert_matches(jobs[::5], res[::5], kw)
     assert peaks == [one_batch, 3 * one_batch]
+
+
+@pytest.mark.parametrize("cls_name,W", [("SmallScanCigarBatch", 32),
+                                        ("RawScanCigarBatch", 128),
+                                        ("RawScanCigarBatch", 512),
+                                        ("ScanCigarBatch", 128)])
+def test_cig_capacity_is_a_power_of_two_within_the_caps(cls_name, W):
+    """At every nl bucket the scan batch capacity is a power of two, never
+    below the class's own (128, 512 for the al <= 32 class), within the
+    cells cap unless at that floor, within the per-batch planes cap, and
+    the largest such: doubling it breaks one of the caps."""
+    from miniprot_tpu_torch import device
+    cls = getattr(sk, cls_name)
+    floor = 512 if W == 32 else 128
+    assert cls.CAPACITY == floor
+    tb_cap = int(80e9 * device.CIG_TB_FRACTION)     # an 80 GB card
+    for nl_b in device.CIG_NL_BUCKETS:
+        if cls.planes_bytes(nl_b, W) > tb_cap:
+            continue                # the engine hosts this bucket
+        cap = device.cig_capacity(cls, nl_b, W, tb_cap)
+        assert cap >= floor and cap & (cap - 1) == 0, (nl_b, cap)
+        assert cls.planes_bytes(nl_b, W, cap) <= tb_cap
+        cells = cap * sk._pad_rows(nl_b) * W
+        assert cap == floor or cells <= device.CIG_BATCH_CELLS
+        assert (2 * cells > device.CIG_BATCH_CELLS
+                or cls.planes_bytes(nl_b, W, 2 * cap) > tb_cap)
+    # the short windows of the narrow classes fill wide launches
+    assert device.cig_capacity(cls, 2048, W, tb_cap) >= (4 * floor if W < 512
+                                                         else 2 * floor)
+
+
+def test_engine_larger_scan_batches_match_host_and_count_routing():
+    """200 CIGAR jobs of one bucket go in one launch (they took two at
+    the old 128-problem capacity), decode to the host engine's CIGARs,
+    and the engine's stats count problems per launch and the jobs it
+    routed to the host by reason."""
+    from miniprot_tpu_torch.device import CIG_MIN_NL, GpuExtEngine
+    from miniprot_tpu_torch.options import MapOpt
+    T, mat, sp, kw = _setup()
+    rng = np.random.default_rng(23)
+    jobs = [_rand_case(rng, 520, 700, 33, 121, b"ARNDCQEGHILKMFPSTWYV")
+            for _ in range(200)]
+    short = [_rand_case(rng, 40, CIG_MIN_NL, 5, 30) for _ in range(5)]
+    opt = MapOpt()
+    engine = GpuExtEngine(opt, "cpu")
+    engine.submit(("cigars", [(ns, aa, None) for ns, aa in jobs + short]))
+    (res,) = engine.flush()
+    assert engine.batches["cig"] == 1 and engine.n_device == 200
+    assert engine.bucket_problems == {("cig", 128, 2048): [200, 200]}
+    assert engine.host_reasons == {"cig_short": 5} and engine.n_host == 5
+    assert engine.host_dp_s > 0
+    kw = dict(kw, mat=opt.mat)
+    _assert_matches((jobs + short)[::7], res[::7], kw)
