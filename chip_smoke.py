@@ -10,15 +10,20 @@ the card and on the host engine and requires byte-identical output.
 Phases (any failure exits non-zero and prints no result):
   1. the card: nvidia-smi name and power limit; CUDA and sm_90 required
   2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines,
-     and per K1/K2 instantiation its count of DPX instructions,
-     named-barrier waits and local loads/stores in the SASS (cuobjdump);
-     the SASS that Hopper's packed int16 intrinsics compile to
+     and per K1/K2/K4/K5 instantiation its registers, spill bytes and
+     count of DPX instructions, named-barrier waits and local
+     loads/stores in the SASS (cuobjdump; a spill in K4's B4 forms or
+     in K5 fails the run); the SASS that Hopper's packed int16
+     intrinsics compile to
   3. kernels: K1 ext_dp (al 128/512/1024, and at go 0), K2
      scan_cigar_dp (al<=512 and al<=32 classes, and W=128 at the
      engine's 512-problem batch), K2 also timed in every geometry
      (warps per problem) it has; K1's device time per problem in a
      67.6 kb bucket at 128 problems against 512 / 1024; K3 run_walk, K4
-     striped_cigar_dp (W 128/512/32, one at go 0) and its int32 form
+     striped_cigar_dp (W 128/512/32 at K2's shapes, each width at go 0
+     and at go 11 but W=128 at go 0 only, and W=128 at go 11 at the
+     engine's 512-problem batch, with K2's time at the same shape
+     beside it) and its int32 form
      striped_cigar_dp32 (scores past 32767), K5 cell_walk, K6
      sketch_orf — exact equality with the
      plain versions on the card and with the host engine (native.dp16 /
@@ -31,8 +36,9 @@ Phases (any failure exits non-zero and prints no result):
      built with the device sketch against the host index.  Each run
      sets the launch counts to 0 just before it and reads them after;
      the kernels' device time per run (CUDA events around each launch),
-     problems per launch per (kind, width, nl bucket), and the DPs the
-     engine ran on the host, by reason, with their host seconds
+     launches and problems per launch per (kind, width, nl bucket),
+     and the DPs the engine ran on the host, by reason, with their host
+     seconds
   5. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
@@ -114,18 +120,57 @@ def sass_functions(path: str) -> dict:
     return ops
 
 
-def sass_counts(so: str) -> None:
-    """Print, per K1/K2 instantiation in the built library, how many of
-    its SASS instructions are Hopper DPX forms (VIADDMNMX: add then
-    max/min; VIMNMX3: three-way max/min), named-barrier waits and
-    local-memory loads and stores (LDL/STL: register spills)."""
+# kernels that must not spill: K4's B4 forms and K5 (their -Xptxas -v
+# spill bytes and their SASS local loads and stores are checked)
+NO_SPILL = ("striped_cigar_kernel", "cell_walk_kernel")
+
+
+def ptxas_spills(log: str) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)} from
+    nvcc's -Xptxas -v output."""
+    out, fn, spill = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn] = (int(m.group(1)), *spill)
+            fn, spill = None, (0, 0)
+    return out
+
+
+def sass_counts(so: str, log: str) -> None:
+    """Print, per K1/K2/K4/K5 instantiation in the built library, how
+    many of its SASS instructions are Hopper DPX forms (VIADDMNMX: add
+    then max/min; VIMNMX3: three-way max/min), named-barrier waits and
+    local-memory loads and stores (LDL/STL: register spills), beside its
+    registers and spill bytes; fail on a spill in NO_SPILL."""
     want = ("VIADDMNMX", "VIMNMX3", "BAR.SYNC", "LDL", "STL")
+    regs = ptxas_spills(log)
+    seen = set()
     for fn, ops in sass_functions(so).items():
-        if "ext_dp" in fn or "scan_cigar" in fn:
-            base = [o[:8] if o.startswith("BAR.") else o.split(".")[0]
-                    for o in ops]
-            print(f"[sass] {fn}: " + ", ".join(f"{op} {base.count(op)}"
-                                               for op in want))
+        if not any(k in fn for k in ("ext_dp", "scan_cigar", "striped",
+                                     "cell_walk")):
+            continue
+        base = [o[:8] if o.startswith("BAR.") else o.split(".")[0]
+                for o in ops]
+        r, st_b, ld_b = regs.get(fn, (None, None, None))
+        print(f"[sass] {fn}: " + ", ".join(f"{op} {base.count(op)}"
+                                           for op in want)
+              + f"; {r} registers, spill stores {st_b} B, loads {ld_b} B")
+        if any(k in fn for k in NO_SPILL):
+            seen.add(next(k for k in NO_SPILL if k in fn))
+            if r is None or st_b or ld_b or base.count("LDL") \
+                    or base.count("STL"):
+                fail(f"{fn} spills or has no ptxas line")
+    if seen != set(NO_SPILL):
+        fail(f"no SASS for {set(NO_SPILL) - seen}")
 
 
 # Hopper's packed int16 intrinsics beside the int32 forms the kernels
@@ -453,7 +498,7 @@ def phase_scan(W, nl_pad, n, seed):
                  source=SRC + "scan_cigar.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:111",
                  counter=k2, paths=("default",), max_abs_err=0, ms=ms,
-                 plain_ms=plain_ms,
+                 plain_ms=plain_ms, shape=(W, nl_pad, n),
                  bound_ms=bms, bound_by=by, library_ms=None),
             dict(name=f"run_walk[{tag}]", route="cuda",
                  source=SRC + "run_walk.cu",
@@ -485,7 +530,10 @@ def _striped_cells(batch, vl):
     return rows, cells
 
 
-def phase_striped(W, nl_pad, n, seed, go):
+def phase_striped(W, nl_pad, n, seed, go, k2_ms):
+    """K4 and K5 on n problems of class width W; k2_ms: K2's device ms
+    per (W, nl bucket, problems) in this run, the yardstick of K4 at the
+    same shape."""
     import numpy as np
     import torch
 
@@ -531,19 +579,24 @@ def phase_striped(W, nl_pad, n, seed, go):
         rsc, _, _, rcig = native.dp16(nsq, asq, flag=DPF_CIGAR, **kw)
         if r[0] != rsc or not np.array_equal(r[1], rcig):
             fail(f"striped_cigar_dp W={W} go={go}: result != host engine")
-    ms = time_ms(lambda: st.striped_cigar_dp(*args), reps=3)
-    walk_ms = time_ms(lambda: st.cell_walk(tb, nlv, alv, steps), reps=5)
+    ms = time_ms(lambda: st.striped_cigar_dp(*args), reps=5)
+    walk_ms = time_ms(lambda: st.cell_walk(tb, nlv, alv, steps), reps=10)
     rows, cells = _striped_cells(batch, st.VL)
     nbytes = 2 * cells + rows * (1 + 8) + n * (W + 8) + 22 * 22
     bms, by = bound(nbytes, cells * K2_OPS_PER_CELL, INT16_OPS_PER_S)
     used = int((walk[0] != 15).sum())
     wbms, wby = bound(used * 3 + n * 16, used * 12, INT32_OPS_PER_S)
-    tag = f"W={W},nl={nl_pad},go={go}"
+    tag = f"W={W},nl={nl_pad},go={go}" + ("" if n == cls.CAPACITY
+                                           else f",n={n}")
     paths = ("-O 0",) if go == 0 else ("striped route",)
+    k2 = k2_ms.get((W, nl_pad, n))
+    beside = ("" if k2 is None else f"; K2 at this shape in this run "
+              f"{k2:.3f} ms (K4 / K2 = {ms / k2:.3f})")
     print(f"[K4 striped_cigar_dp] {tag} n={n}: exact vs plain and host "
-          f"engine; {ms:.3f} ms, {cells} cells, {cells / ms / 1e6:.2f} "
-          f"GCUPS; plain {plain_ms:.1f} ms; bound {bms:.4f} ms ({by})",
-          flush=True)
+          f"engine; {ms:.3f} ms ({1e3 * ms / n:.2f} us per problem), "
+          f"{cells} cells, {cells / ms / 1e6:.2f} GCUPS; plain "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}); "
+          f"{st.STRIPED_WARPS[W]} warps per problem{beside}", flush=True)
     print(f"[K5 cell_walk] {tag} n={n}: exact vs plain; {walk_ms:.3f} ms "
           f"for {used} steps; plain {walk_plain_ms:.1f} ms; bound "
           f"{wbms:.5f} ms ({wby})", flush=True)
@@ -731,9 +784,10 @@ def _report(tag, gpu, host, threads):
                       in sorted(stats["bucket_batches"].items())),
           flush=True)
     launches = stats["bucket_batches"]
-    print(f"[e2e {tag}] problems per launch (kind, width, nl bucket: mean "
-          "/ max): " + ", ".join(
-              f"{k}x{w}x{b} {t / launches[(k, w, b)]:.1f} / {m}"
+    print(f"[e2e {tag}] problems per launch (kind, width, nl bucket: "
+          "launches, mean / max problems): " + ", ".join(
+              f"{k}x{w}x{b} {launches[(k, w, b)]}, "
+              f"{t / launches[(k, w, b)]:.1f} / {m}"
               for (k, w, b), (t, m) in sorted(
                   stats["bucket_problems"].items())), flush=True)
     print(f"[e2e {tag}] host-routed DPs by reason: "
@@ -855,7 +909,7 @@ def main() -> None:
         if ln.startswith("==") or "registers" in ln or "spill" in ln \
                 or "entry function" in ln:
             print(f"[ptxas] {ln.strip()}")
-    sass_counts(kernels.SO)
+    sass_counts(kernels.SO, kernels.BUILD_LOG)
     sass_int16x2_probe()
 
     entries = [phase_ext(128, 2112, 128, 1), phase_ext(512, 8448, 128, 2),
@@ -868,9 +922,15 @@ def main() -> None:
     entries += phase_scan(128, 4096, 512, 14)
     probe_ext_capacity(1024, 67584, (128, 512), 15)
     probe_ext_capacity(128, 67584, (128, 1024), 16)
-    entries += phase_striped(128, 4096, 128, 7, go=0)
-    entries += phase_striped(512, 2048, 128, 8, go=11)
-    entries += phase_striped(32, 2048, 512, 9, go=11)
+    k2_ms = {e.pop("shape"): e["ms"] for e in entries if "shape" in e}
+    # each width's go == 0 and go >= 1 instantiation at K2's shape
+    entries += phase_striped(128, 4096, 128, 7, 0, k2_ms)
+    entries += phase_striped(512, 2048, 128, 8, 11, k2_ms)
+    entries += phase_striped(512, 2048, 128, 18, 0, k2_ms)
+    entries += phase_striped(32, 2048, 512, 9, 11, k2_ms)
+    entries += phase_striped(32, 2048, 512, 19, 0, k2_ms)
+    # the engine's striped batch at W=128 / nl 4096 (device.cig_capacity)
+    entries += phase_striped(128, 4096, 512, 17, 11, k2_ms)
     entries.append(phase_dp32(512, 2048, 128, 10))
     entries.append(phase_sketch(12, args.genome_mb * 1_000_000 // N_CTG))
     runs = phase_e2e(args.genome_mb, args.proteins, args.threads)

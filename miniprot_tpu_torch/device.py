@@ -66,9 +66,10 @@ PENDING_TB_FRACTION = 0.30
 # 67584 takes ~7x less device time per problem in a launch of 1024 than
 # in one of 128: PERF.md)
 EXT_BATCH_CELLS = 1 << 26
-# scan CIGAR batches hold about this many (problem x row x position) DP
-# cells (1 GiB of tb + hint planes), so short windows of the narrow
-# classes go in launches of up to 1024 (4096 at W = 32) problems
+# CIGAR batches hold about this many (problem x row x position) DP cells
+# (1 GiB of tb + hint planes on the scan kernel, 512 MiB of tb on the
+# striped one), so short windows of the narrow classes go in launches of
+# up to 1024 (4096 at W = 32) problems
 CIG_BATCH_CELLS = 1 << 28
 
 
@@ -92,10 +93,11 @@ def ext_capacity(nl_b: int) -> int:
 
 
 def cig_capacity(cls, nl_b: int, W: int, tb_cap: int) -> int:
-    """Problems per scan CIGAR batch of class ``cls`` at class width W
-    and nl bucket nl_b: the largest power of two from the class's own
-    CAPACITY (128, or 512 for the al <= 32 class) up whose cells stay
-    within CIG_BATCH_CELLS and whose planes fit ``tb_cap``."""
+    """Problems per CIGAR batch of class ``cls`` (scan or striped) at
+    class width W and nl bucket nl_b: the largest power of two from the
+    class's own CAPACITY (128, or 512 for the al <= 32 class) up whose
+    cells stay within CIG_BATCH_CELLS and whose planes (the class's own
+    planes_bytes) fit ``tb_cap``."""
     cap = cls.CAPACITY
     rows = csk._pad_rows(nl_b)
     while (2 * cap * rows * W <= CIG_BATCH_CELLS
@@ -377,13 +379,10 @@ class GpuExtEngine:
         for (slen, nl_b), idxs in buckets.items():
             W = slen * 8
             raw_cls, prep_cls = self._cig_classes(W)
-            # scan batches (K2) grow with the window; the striped ones
-            # keep their class capacity
-            scan = issubclass(raw_cls, csk._ScanBatch)
-            cap = (cig_capacity(raw_cls, nl_b, W, self.cig_tb_cap) if scan
-                   else raw_cls.CAPACITY)
-            prep_cap = (cig_capacity(prep_cls, nl_b, W, self.cig_tb_cap)
-                        if scan else prep_cls.CAPACITY)
+            # batches grow as the window shrinks, so short windows fill
+            # the card with problems (K2's and K4's warp per problem)
+            cap = cig_capacity(raw_cls, nl_b, W, self.cig_tb_cap)
+            prep_cap = cig_capacity(prep_cls, nl_b, W, self.cig_tb_cap)
             raw_all = [i for i in idxs if cig_jobs[i].ss is None]
             old_all = [i for i in idxs if cig_jobs[i].ss is not None]
             for c0 in range(0, len(raw_all), cap):

@@ -51,8 +51,9 @@ _SIGNATURES = {
     "mp_scan_cigar": [_vp] * 9 + [_i] * 9 + [_vp],
     # tb hint nl al states counts fi fj | n TR W rounds | stream
     "mp_run_walk": [_vp] * 8 + [_i] * 4 + [_vp],
-    # nas D A nl al aas mat tb score | n R RD W TR go ge fs vl | stream
-    "mp_striped_cigar": [_vp] * 9 + [_i] * 9 + [_vp],
+    # nas D A nl al aas mat tb score | n R RD W TR go ge fs | stream
+    "mp_striped_cigar": [_vp] * 9 + [_i] * 8 + [_vp],
+    "mp_striped_cigar32": [_vp] * 9 + [_i] * 8 + [_vp],
     # tb nl al states fi fj | n TR W steps | stream
     "mp_cell_walk": [_vp] * 6 + [_i] * 4 + [_vp],
     # seq codon codon13 hs ps keep | ns0 ns1 ns2 off1 off2 | min_aa_len

@@ -35,6 +35,9 @@
 //   5. branchless run-length hints; each thread stores its P tb and P
 //      hint values with one store per plane (8 B at P = 4) and hands H
 //      and the match-run counter to the right by shuffle.
+// Steps 1-3 are common.cuh's NS_F_CIGAR row (CigRow, warp_carry, row_i,
+// pass1), which K4 (striped_cigar.cu) computes too; the run
+// counters, the hints and bit 9's state rewrite are K2's own.
 // A one-warp problem has no barrier at all.  A multi-warp problem meets
 // once per row at its own named barrier (bar.sync 1 + slot, 32 * NWP),
 // in a buffer that alternates with the row's parity: each warp leaves
@@ -69,31 +72,6 @@
 // and stay latency-bound (PERF.md).
 #include "common.cuh"
 
-#define NEG16 (-32768)
-#define NEGI (-(1 << 29))
-
-namespace {
-
-// per-warp values a multi-warp problem exchanges at its one barrier of a
-// row, all local to the warp (without the earlier warps' carry)
-struct ScanX {
-  int sv;  // segmented inclusive max of u over the warp
-  int fm;  // plain max of u over the warp
-  int vl;  // segmented max over the warp's positions before its last
-  int fl;  // plain max over the warp's positions before its last
-  int bl;  // base at the warp's last position
-  int c0;  // the previous row's match-run counter at the last position
-  int x1;  // the previous row's last position without bit 4 (-1: none)
-};
-
-// first maximum of two (value, code) pairs: ties keep the left one
-__device__ __forceinline__ void first_max(int a, int ya, int b, int yb, int& m, int& y) {
-  m = imax(a, b);
-  y = a >= b ? ya : yb;
-}
-
-}  // namespace
-
 template <int P, int NWP>
 __global__ void __launch_bounds__(128) scan_cigar_kernel(
     const int8_t* __restrict__ nas, const int32_t* __restrict__ Dtr,
@@ -107,7 +85,7 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
   using Pk = typename Pack<P>::T;
   __shared__ Pk s_prof[PPB][22][NT];
   __shared__ RowTile<false> s_row[4];
-  __shared__ ScanX s_sx[2][PPB][NWP];  // by row parity
+  __shared__ CigX s_sx[2][PPB][NWP];  // by row parity
   const int g = threadIdx.x / NT;
   const int b = blockIdx.x * PPB + g;
   if (b >= n) return;  // whole problems leave together
@@ -115,27 +93,7 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
   const int q0 = tp * P, qw = wp * 32 * P;
   const int nl = imin(nlv[b], TR), al = alv[b];
   const int slen = imax((al + 7) / 8, 1);
-  // the segmented scan's combine steps, from the lane (in this warp's
-  // numbering) holding the start of the segment of this thread's last
-  // position; the start of q0's own segment
-  const unsigned steps = seg_steps((((q0 + P - 1) / slen) * slen) / P - wp * 32);
-  const int s0start = (q0 / slen) * slen;
-  // segment starts among this thread's positions (bit p), and whether
-  // one lies before its last position; per earlier warp w (bit w): a
-  // start inside it, one before its last position, its last position a
-  // start (all fixed for the problem, so no division in the row loop)
-  unsigned stm = 0;
-#pragma unroll
-  for (int p = 0; p < P; ++p) stm |= (unsigned)((q0 + p) % slen == 0) << p;
-  const int vl_own = (q0 + P - 2) / slen * slen >= q0;
-  unsigned wf_in = 0, wf_pre = 0, wf_last = 0;
-#pragma unroll 1
-  for (int w = 0; w < wp; ++w) {
-    const int qa = w * 32 * P, qL = qa + 32 * P - 1;
-    wf_in |= (unsigned)(qL / slen * slen >= qa) << w;
-    wf_pre |= (unsigned)((qL - 1) / slen * slen >= qa) << w;
-    wf_last |= (unsigned)(qL % slen == 0) << w;
-  }
+  const SegMasks<P> m(q0, wp, slen);
   const int8_t* pb = prof + (size_t)b * 22 * W;
   for (int c = 0; c < 22; ++c)
     s_prof[g][c][tp] = *reinterpret_cast<const Pk*>(pb + c * W + q0);
@@ -146,24 +104,16 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
   RowVals rv = rs.first();
   Pk sp = s_prof[g][rv.c][tp];
 
-  int H1[P], H2[P], H3[P], D1[P], D2[P], D3[P], Ac[P], Bc[P], Cc[P];
+  CigRow<P> r(tp, fs);
+  // run counters: match runs of rows i-1..i-3 (and of position q0 - 1),
+  // D runs of rows i-1..i-3, A/B/C runs
   int C01[P], C02[P], C03[P], CD1[P], CD2[P], CD3[P], CA[P], CB[P], CC[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    H1[p] = H2[p] = H3[p] = D1[p] = D2[p] = D3[p] = NEG16;
-    Ac[p] = Bc[p] = Cc[p] = NEG16;
     C01[p] = C02[p] = C03[p] = CD1[p] = CD2[p] = CD3[p] = 0;
     CA[p] = CB[p] = CC[p] = 0;
   }
-  // left neighbour of position q0 for rows i-1..i-3 (H and match-run
-  // counter).  Thread 0 holds the [-1] column: H(-1,-1)=0,
-  // H(0,-1)=H(1,-1)=-fs, seen at row 2 only (nasw_cigar_scan.py:333-343)
-  int LH1 = NEG16, LH2 = NEG16, LH3 = NEG16, LC1 = 0, LC2 = 0, LC3 = 0;
-  if (tp == 0) {
-    LH1 = -fs;
-    LH2 = -fs;
-    LH3 = 0;
-  }
+  int LC1 = 0, LC2 = 0, LC3 = 0;
   int scv = NEG16;
   // a multi-warp problem stores a row's hints one row late: a hint of an
   // I run that starts in an earlier warp waits for that warp's last
@@ -174,58 +124,22 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
   for (int i = 2; i < nl; ++i) {
     const int gei = rv.c == 20 ? fs : ge;
     // 1. order-free candidates
-    int match[P], cm[P], wd[P], base[P], u[P], Dn[P], cntD[P];
-    int sv = NEGI, fm = NEGI, svl = NEGI, fml = NEGI;
+    int S[P];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int q = q0 + p;
-      const int h3m1 = p ? H3[p - 1] : LH3;
-      const int h1m1 = p ? H1[p - 1] : LH1;
-      const int h2m1 = p ? H2[p - 1] : LH2;
-      const int S = q < al ? Pack<P>::at(sp, p) : NEG16;
-      match[p] = sat16(h3m1 + S);
-      const int ud = sat16(H3[p] - go);
-      int bt = (D3[p] > ud) << 5;
-      Dn[p] = sat16(imax(ud, D3[p]) - gei);
-      const int ua = sat16(H1[p] - rv.dm1);
-      bt |= (Ac[p] > ua) << 6;
-      Ac[p] = imax(ua, Ac[p]);
-      const int ub = sat16(h1m1 - rv.d0);
-      bt |= (Bc[p] > ub) << 7;
-      Bc[p] = imax(ub, Bc[p]);
-      const int uc = sat16(h1m1 - rv.dp1);
-      bt |= (Cc[p] > uc) << 8;
-      Cc[p] = imax(uc, Cc[p]);
-      // first maximum of the candidates after I in the priority order
-      // (D, A, B, C, fs1..fs4 = codes 2..9), as a tree of depth 3
-      int m01, y01, m23, y23, m45, y45, m67, y67, m, y;
-      first_max(Dn[p], 2, sat16(Ac[p] - rv.a0), 3, m01, y01);
-      first_max(sat16(Bc[p] - rv.am2), 4, sat16(Cc[p] - rv.am1), 5, m23, y23);
-      first_max(sat16(H1[p] - fs), 6, sat16(H2[p] - fs), 7, m45, y45);
-      first_max(sat16(h1m1 - fs), 8, sat16(h2m1 - fs), 9, m67, y67);
-      first_max(m01, y01, m23, y23, m01, y01);
-      first_max(m45, y45, m67, y67, m45, y45);
-      first_max(m01, y01, m45, y45, m, y);
-      cm[p] = m;
-      wd[p] = bt | y;
-      // the D and A/B/C run counters need only bits 5-8: computed here,
-      // they fill the issue slots of the scan's shuffles below
+    for (int p = 0; p < P; ++p) S[p] = q0 + p < al ? Pack<P>::at(sp, p) : NEG16;
+    // the D and A/B/C run counters need only bits 5-8: computed with the
+    // candidates, they fill the issue slots of the scan's shuffles below
+    RowTerms<P> t;
+    int cntD[P];
+    r.candidates(S, rv, q0, m.stm, go, ge, gei, fs, t, [&](int p, int bt) {
       cntD[p] = (bt >> 5) & 1 ? CD3[p] + 1 : 0;
       CA[p] = (bt >> 6) & 1 ? CA[p] + 1 : 0;
       CB[p] = (bt >> 7) & 1 ? CB[p] + 1 : 0;
       CC[p] = (bt >> 8) & 1 ? CC[p] + 1 : 0;
-      base[p] = imax(match[p], m);
-      u[p] = sat16(base[p] - go) + q * ge;
-      if (p == P - 1) {  // before the last position
-        svl = sv;
-        fml = fm;
-      }
-      sv = (stm >> p) & 1 ? u[p] : imax(sv, u[p]);
-      fm = imax(fm, u[p]);
-    }
+    });
     // 2. segmented and full prefix max of u
-    int svi = sv, fmi = fm;
-    warp_incl_max2(svi, steps, fmi);
+    int svi = t.sv, fmi = t.fm;
+    warp_incl_max2(svi, m.steps, fmi);
     int exs = __shfl_up_sync(FULL_MASK, svi, 1);
     int exf = __shfl_up_sync(FULL_MASK, fmi, 1);
     if (lane == 0) exs = exf = NEGI;
@@ -233,63 +147,37 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
     int il = NEGI, tl = 0;               // (Iused, t4) at q0 - 1 for lane 0
     int hedge = NEG16;                   // H at q0 - 1 for lane 0
     if constexpr (NWP > 1) {
-      ScanX(*sx)[NWP] = s_sx[i & 1];
+      CigX(*sx)[NWP] = s_sx[i & 1];
       if (lane == 31)
-        sx[g][wp] = ScanX{svi, fmi, vl_own ? svl : imax(exs, svl),
-                          imax(exf, fml), base[P - 1], c0_last, x1_last};
+        sx[g][wp] = CigX{svi, fmi, m.vl_own ? t.svl : imax(exs, t.svl),
+                          imax(exf, t.fml), t.base[P - 1], c0_last, x1_last};
       bar_sync(1 + g, NT);
-      Seg cs{0, NEGI};
-      int xcarry = -1, cedge = 0;
-#pragma unroll
-      for (int w = 0; w < NWP - 1; ++w) {
-        if (w < wp) {
-          const ScanX x = sx[g][w];
-          if (w == wp - 1) {
-            // the left neighbour's I, t4 and H, from its local prefix
-            // maxima and the carry of the warps before it
-            const int qL = (w + 1) * 32 * P - 1;
-            const int sxv = (wf_pre >> w) & 1 ? x.vl : imax(cs.v, x.vl);
-            il = imax(((wf_last >> w) & 1 ? NEGI : sxv) - qL * ge, NEG16);
-            tl = sat16(imax(x.bl, il) - go);
-            hedge = imax(x.bl, imax(imax(carry_f, x.fl) - qL * ge, NEG16));
-            cedge = x.c0;
-          }
-          cs = seg_combine(cs, Seg{(int)((wf_in >> w) & 1), x.sv});
-          carry_f = imax(carry_f, x.fm);
-          xcarry = imax(xcarry, x.x1);
-        }
+      const WarpCarry c = warp_carry<P, NWP, true>(sx[g], wp, m, go, ge);
+      carry_s = c.seg;
+      carry_f = c.full;
+      if (wp > 0) {
+        il = c.il;
+        tl = c.tl;
+        hedge = c.hedge;
       }
-      carry_s = cs.v;
       // the previous row's hints, now that the I-run carry is known
       if (i > 2) {
 #pragma unroll
         for (int p = 0; p < P; ++p)
-          if ((pend >> p) & 1) hvp[p] = q0 + p - xcarry;
+          if ((pend >> p) & 1) hvp[p] = q0 + p - c.x1;
         store16<P>(hib + offp, hvp);
       }
       if (lane == 0 && wp > 0) {
         LC3 = LC2;
         LC2 = LC1;
-        LC1 = cedge;
+        LC1 = c.x0;
       }
     }
-    int segc = s0start < qw ? imax(exs, carry_s) : exs;
-    int fullc = imax(exf, carry_f);
+    const int segc = m.s0start < qw ? imax(exs, carry_s) : exs;
+    const int fullc = imax(exf, carry_f);
     // 3. I, H and the word
-    int Iused[P], t4[P], Hfin[P], b9[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int q = q0 + p;
-      const int st = (stm >> p) & 1;
-      Iused[p] = imax((st ? NEGI : segc) - q * ge, NEG16);
-      const int Istar = imax(fullc - q * ge, NEG16);
-      segc = st ? u[p] : imax(segc, u[p]);
-      fullc = imax(fullc, u[p]);
-      const int hp1 = imax(base[p], Iused[p]);
-      Hfin[p] = imax(base[p], Istar);
-      b9[p] = Istar > hp1;
-      t4[p] = sat16(hp1 - go);
-    }
+    int Iused[P], hp1[P], t4[P], Hfin[P], b9[P];
+    row_i<P, true>(t, m.stm, q0, segc, fullc, go, ge, Iused, hp1, t4, Hfin, b9);
     {
       const int iu = __shfl_up_sync(FULL_MASK, Iused[P - 1], 1);
       const int tu = __shfl_up_sync(FULL_MASK, t4[P - 1], 1);
@@ -298,19 +186,16 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
         tl = tu;
       }
     }
-    int s0[P], cnt0[P], x1 = -1;
+    int wd[P], s0[P], cnt0[P], x1 = -1;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
-      const int ip = p ? Iused[p - 1] : il;
-      const int tq = p ? t4[p - 1] : tl;
-      const int b4 = !((stm >> p) & 1) && ip > tq;
-      // pass-1 state nibble: the first maximum of (match, I, D, A, B,
-      // C, fs1..fs4) under the strict-> chain
-      const int y = cm[p] > imax(match[p], Iused[p]) ? (wd[p] & 15)
-                    : (Iused[p] > match[p] ? 1 : 0);
+      int y, b4;
+      pass1(t, p, Iused[p], p ? Iused[p - 1] : il, p ? t4[p - 1] : tl, (m.stm >> p) & 1,
+            y, b4);
+      // the walk's state: 1 where lazy-F overwrote H with I
       s0[p] = b9[p] ? 1 : y;
-      wd[p] = (wd[p] & ~15) | s0[p] | (b4 << 4) | (b9[p] << 9);
+      wd[p] = (t.wd[p] & ~15) | s0[p] | (b4 << 4) | (b9[p] << 9);
       x1 = imax(x1, b4 ? -1 : q);
       const int c03m1 = p ? C03[p - 1] : LC3;
       cnt0[p] = s0[p] == 0 ? c03m1 + 1 : 0;
@@ -351,16 +236,11 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
       CD3[p] = CD2[p];
       CD2[p] = CD1[p];
       CD1[p] = cntD[p];
-      H3[p] = H2[p];
-      H2[p] = H1[p];
-      H1[p] = Hfin[p];
-      D3[p] = D2[p];
-      D2[p] = D1[p];
-      D1[p] = Dn[p];
       C03[p] = C02[p];
       C02[p] = C01[p];
       C01[p] = cnt0[p];
     }
+    r.advance(Hfin, t.Dn);
     const size_t off = (size_t)i * W + q0;
     store16<P>(tbb + off, wd);
     if constexpr (NWP > 1) {
@@ -373,25 +253,19 @@ __global__ void __launch_bounds__(128) scan_cigar_kernel(
     // the next row's streams and profile word
     rv = rs.next(i + 1);
     sp = s_prof[g][rv.c][tp];
-    if (tp == 0) {
-      // boundary column: NEG from row 3 on (the -fs values are cleared
-      // once row 2 consumed them), match-run counter 0
-      LH1 = LH2 = LH3 = NEG16;
-    } else {
-      LH3 = LH2;
-      LH2 = LH1;
-      LH1 = hl;
-      if (NWP == 1 || lane != 0) {  // lane 0 of a later warp: one row late
-        LC3 = LC2;
-        LC2 = LC1;
-        LC1 = cl;
-      }
+    // boundary column: NEG from row 3 on (the -fs values are cleared
+    // once row 2 consumed them), match-run counter 0
+    r.advance_left(tp, hl);
+    if (tp != 0 && (NWP == 1 || lane != 0)) {  // lane 0 of a later warp: one row late
+      LC3 = LC2;
+      LC2 = LC1;
+      LC1 = cl;
     }
   }
   if constexpr (NWP > 1) {
     // the last row's hints: one more exchange of the I-run carry
     if (nl > 2) {
-      ScanX(*sx)[NWP] = s_sx[nl & 1];
+      CigX(*sx)[NWP] = s_sx[nl & 1];
       if (lane == 31) sx[g][wp].x1 = x1_last;
       bar_sync(1 + g, NT);
       int xcarry = -1;

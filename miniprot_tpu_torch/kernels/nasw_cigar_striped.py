@@ -24,7 +24,12 @@ The plain versions compute the same words in position order: the first
 pass of a row (the stripe loop) is the segmented I scan of
 nasw_cigar_scan.py (a lane's stripes are one run of positions), and the
 lazy-F fixup is evaluated on its whole (pass, stripe, lane) step grid
-at once, up to each problem's own break (_striped_plain).
+at once, up to each problem's own break (_striped_plain).  K4's B4 form
+computes the row as the scan kernel does (the fixup is the full-row I
+scan at go >= 1 and one step at each segment start at go == 0;
+tests/test_torch_striped.py holds both identities against
+_striped_plain) and stores it in striped column order; its B4' form
+keeps the striped loop.
 """
 
 from __future__ import annotations
@@ -33,17 +38,21 @@ import numpy as np
 import torch
 
 from . import LAUNCHES, call, require, stream_ptr
-from .nasw_cigar_scan import (SMALL_CAPACITY, HostTracks, RawTracks,
-                              TrackBatch, _left, _row_terms, _sadd, _ssub,
-                              _state_nibble)
+from .nasw_cigar_scan import (SCAN_WIDTHS, SMALL_CAPACITY, HostTracks,
+                              RawTracks, TrackBatch, _left, _row_terms, _sadd,
+                              _ssub, _state_nibble)
 from .nasw_ext import _upload
 
 NEG16 = -32768           # int16 saturation floor (B4)
 NEG32 = -0x40000000      # gs32b init value (B4')
 VL = 8                   # lanes per stripe, saturating int16
 VL32 = 4                 # lanes per stripe, int32
-# lanes per stripe mp_striped_cigar is built for (its launch switch)
-STRIPE_LANES = (VL, VL32)
+# class widths K4's B4 form is built for, and the warps per problem that
+# mp_striped_cigar's launch switch fixes for each (reported, not passed):
+# K2's spread geometries (a warp per problem at W=128 lost to two at 128
+# and at 512 problems, and the maps launch fewer; PERF.md)
+STRIPED_WIDTHS = SCAN_WIDTHS
+STRIPED_WARPS = {32: 1, 128: 2, 512: 4}
 
 # per-state genome rows / query columns consumed (bt_step in mpnative.c)
 _BT_DI = (3, 0, 3, 1, 1, 1, 1, 2, 1, 2, 0, 0, 0, 0, 0, 0)
@@ -65,25 +74,37 @@ def striped_cigar_dp(nas, D, A, nlv, alv, aas, mat, opts, rows):
     opts = (go, ge, fs); rows = the tb rows to allocate (>= max nl,
     <= R).  Returns tb (n, rows, W) int16 in striped column order (rows
     [2, nl_b) and columns of stripes < slen_b are defined) and score
-    (n,) int32 = H(nl-1, al-1).  CUDA tensors launch K4; CPU tensors
-    run striped_cigar_dp_plain."""
-    return _striped(VL, nas, D, A, nlv, alv, aas, mat, opts, rows)
+    (n,) int32 = H(nl-1, al-1).  CUDA tensors launch K4 (W one of
+    STRIPED_WIDTHS, STRIPED_WARPS[W] warps per problem); CPU tensors run
+    striped_cigar_dp_plain."""
+    if not nas.is_cuda:
+        return _striped_plain(VL, nas, D, A, nlv, alv, aas, mat, opts, rows)
+    W = aas.shape[1]
+    if W not in STRIPED_WIDTHS:
+        raise ValueError(f"striped_cigar_dp: unsupported W={W}")
+    return _launch_striped("mp_striped_cigar", "striped_cigar_dp", nas, D, A,
+                           nlv, alv, aas, mat, opts, rows)
 
 
 def striped_cigar_dp32(nas, D, A, nlv, alv, aas, mat, opts, rows):
     """The same with 4 plain int32 lanes per stripe (B4', gs32b): no
     saturation, NEG32 floor, at most 4 lazy-F passes.  Scores may pass
-    the int16 range."""
-    return _striped(VL32, nas, D, A, nlv, alv, aas, mat, opts, rows)
-
-
-def _striped(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
+    the int16 range.  Any W that is a multiple of 4."""
     if not nas.is_cuda:
-        return _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows)
+        return _striped_plain(VL32, nas, D, A, nlv, alv, aas, mat, opts,
+                              rows)
+    W = aas.shape[1]
+    if W % VL32:
+        raise ValueError(f"striped_cigar_dp32: W={W} is not a multiple of "
+                         f"{VL32}")
+    return _launch_striped("mp_striped_cigar32", "striped_cigar_dp32", nas,
+                           D, A, nlv, alv, aas, mat, opts, rows)
+
+
+def _launch_striped(entry, counter, nas, D, A, nlv, alv, aas, mat, opts,
+                    rows):
     n, R = nas.shape
     W = aas.shape[1]
-    if W % vl:
-        raise ValueError(f"striped_cigar_dp: W={W} is not a multiple of {vl}")
     require(nas, torch.int8, 2, "nas")
     require(D, torch.int32, 2, "D")
     require(A, torch.int32, 2, "A")
@@ -100,12 +121,12 @@ def _striped(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
     if n == 0:
         return tb, score
     go, ge, fs = (int(v) for v in opts)
-    call("mp_striped_cigar",
+    call(entry,
          nas.data_ptr(), D.data_ptr(), A.data_ptr(), nlv.data_ptr(),
          alv.data_ptr(), aas.data_ptr(), mat.data_ptr(), tb.data_ptr(),
-         score.data_ptr(), n, R, R + 8, W, rows, go, ge, fs, vl,
+         score.data_ptr(), n, R, R + 8, W, rows, go, ge, fs,
          stream_ptr(nas))
-    LAUNCHES["striped_cigar_dp" if vl == VL else "striped_cigar_dp32"] += 1
+    LAUNCHES[counter] += 1
     return tb, score
 
 
@@ -262,11 +283,15 @@ def valid_cells(nlv, alv, rows, W, vl=VL):
 
 def cell_walk(tb, nlv, alv, steps):
     """Walk each problem's striped B4 words from (nl-1, al-1), one cell
-    per step (nasw_cigar_pallas._device_backtrack).  Returns states
-    (n, steps) int8 (15 = past the end), i_final, j_final (n,) int32.
-    steps >= max nl + max al + 2 always finishes every walk (each step
-    consumes a row or a column).  CUDA tensors launch K5; CPU tensors
-    run cell_walk_plain."""
+    per step (nasw_cigar_pallas._device_backtrack), for at most
+    ``steps`` steps.  Returns states (n, steps) int8, one per step and
+    15 past the walk's end, and i_final, j_final (n,) int32.  Each step
+    consumes a genome row or a query column, so a walk ends within
+    nl + al - 2 steps; _StripedBatch.steps() allots that.  CUDA tensors
+    launch K5, which walks a warp per problem through tiles of the
+    words staged in shared memory, a whole run of one state per round
+    (the same states and final cells); CPU tensors run
+    cell_walk_plain."""
     if not tb.is_cuda:
         return cell_walk_plain(tb, nlv, alv, steps)
     require(tb, torch.int16, 3, "tb")
@@ -346,9 +371,11 @@ class _StripedBatch(TrackBatch):
         self.aas[b, :len(aas)] = aas
 
     def steps(self) -> int:
-        """Walk steps that finish every problem of the batch."""
-        return (max((nl for nl, _ in self.dims), default=0)
-                + max((al for _, al in self.dims), default=0) + 2)
+        """Walk steps that finish every problem of the batch: a walk
+        ends within nl + al - 2 steps (each one consumes a row or a
+        column), so the stream's width is the largest of those (at
+        least 1)."""
+        return max((nl + al - 2 for nl, al in self.dims), default=1)
 
     def _launch_dp(self):
         """K4 on the batch's tracks: (tb, score, nlv, alv) on the card."""
@@ -381,8 +408,8 @@ class RawCigarBatch(RawTracks, _StripedBatch):
 
 
 class SmallCigarBatch(RawCigarBatch):
-    """The al <= 32 class on the striped kernel: up to 512 problems per
-    launch, as the scan path's small class."""
+    """The al <= 32 class on the striped kernel: 512 problems per launch
+    or more (device.cig_capacity), as the scan path's small class."""
 
     CAPACITY = SMALL_CAPACITY
 

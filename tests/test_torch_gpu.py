@@ -333,3 +333,142 @@ def test_ext_kernel_geometry_edges(cuda_card, AL, go):
     assert torch.equal(got, want)
     # the x-drop (or the window's end) stopped the problems at many rows
     assert len(set(rows.tolist())) > n // 4
+
+
+def _striped_args(batch):
+    """K4's arguments as a striped batch's launch builds them."""
+    n, dev = batch.n, batch.device
+    nlv, alv = batch._lens()
+    return (*batch._tracks(), nlv, alv, ne._upload(batch.aas[:n], dev),
+            ne._upload(batch.mat, dev), (batch.go, batch.ge, batch.fs),
+            batch._rows())
+
+
+def _striped_edge_batch(dev, W, go, n, seed, nl_pad=400):
+    """Edge lengths (_edge_lengths) plus, for the multi-warp forms at
+    go == 0, the al whose stripe segments start at a warp's last
+    position (W=128 in 2 warps: slen 9; W=512: slen 51)."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(seed)
+    cls = st.SmallCigarBatch if W == 32 else st.RawCigarBatch
+    batch = cls(W, nl_pad, mat, (go,) + OPT[1:], sp=sp, device=dev,
+                capacity=n)
+    lens = _edge_lengths(rng, W, nl_pad, n)
+    extra = {128: (65, 68, 72), 512: (401, 405, 408)}.get(W, ())
+    for k, al in enumerate(extra):
+        lens[2 * len(extra) + k] = (nl_pad - k, al)
+    lens[1] = (2, lens[1][1])                       # nl < 3
+    for k, (nl, al) in enumerate(lens):
+        if k % 2:
+            nt4, aas = _homolog(rng, T, al, nl)
+        else:
+            nt4 = rng.integers(0, 5, nl).astype(np.uint8)
+            aas = T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYVX*"), al)]
+        batch.add_raw(nt4, aas, io=29)
+    return batch
+
+
+@pytest.mark.parametrize("W,go", [(W, go) for W in st.STRIPED_WIDTHS
+                                  for go in (0, 11)])
+def test_striped_kernel_geometry_edges(cuda_card, W, go):
+    """K4's B4 form at each width (its geometry, STRIPED_WARPS), at go 0
+    and go 11, exact against its plain version: n not a multiple of the
+    problems per block, nl = 2 and nl = 3 beside nl near the bucket in
+    one launch, al = 1, al = W, al on both sides of a segment-length
+    step, and (multi-warp) segments that start at a warp's last
+    position."""
+    batch = _striped_edge_batch(cuda_card, W, go, 31, 200 + W + go)
+    args = _striped_args(batch)
+    tb, score = st.striped_cigar_dp(*args)
+    tb_p, score_p = st.striped_cigar_dp_plain(*args)
+    torch.cuda.synchronize()
+    valid = st.valid_cells(args[3], args[4], tb.shape[1], W)
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(score, score_p)
+
+
+def test_striped_kernel_at_engine_capacity(cuda_card):
+    """A W=128 striped launch as large as the engine's striped batches
+    get (device.cig_capacity on their tb-only planes at the 2048-row
+    bucket), at go 0, against the plain version."""
+    from miniprot_tpu_torch import device
+    cap = device.cig_capacity(st.RawCigarBatch, 2048, 128,
+                              int(80e9 * device.CIG_TB_FRACTION))
+    assert cap >= 512
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(78)
+    batch = st.RawCigarBatch(128, 300, mat, (0,) + OPT[1:], sp=sp,
+                             device=cuda_card, capacity=cap)
+    for _ in range(cap):
+        al = int(rng.integers(1, 129))
+        nt4, aas = _homolog(rng, T, al, int(rng.integers(3, 300)))
+        batch.add_raw(nt4, aas, io=29)
+    args = _striped_args(batch)
+    tb, score = st.striped_cigar_dp(*args)
+    tb_p, score_p = st.striped_cigar_dp_plain(*args)
+    torch.cuda.synchronize()
+    valid = st.valid_cells(args[3], args[4], tb.shape[1], 128)
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(score, score_p)
+
+
+def _gapped_homolog(rng, T, al, intron, insert):
+    """nt4 of a protein of length al spelled in codons (10% substituted)
+    with a GT..AG intron of ``intron`` bases after its first half, and
+    the aa20 query with ``insert`` extra residues (not in the genome)
+    after its third quarter."""
+    nt4, aas = _homolog(rng, T, al, 3 * al)
+    cut = 3 * (al // 2)
+    body = rng.integers(0, 4, intron).astype(np.uint8)
+    body[:2], body[-2:] = (2, 3), (0, 2)             # GT ... AG
+    nt4 = np.concatenate([nt4[:cut], body, nt4[cut:]])
+    ins = T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"), insert)]
+    at = 3 * al // 4
+    return nt4, np.concatenate([aas[:at], ins, aas[at:]])
+
+
+def _runs(states, s):
+    """Longest run of state s in each walk's stream."""
+    out = []
+    for row in states.tolist():
+        best = cur = 0
+        for x in row:
+            cur = cur + 1 if x == s else 0
+            best = max(best, cur)
+        out.append(best)
+    return out
+
+
+def test_walk_kernel_tiles_and_ends(cuda_card):
+    """K5 exact against its plain version on walks that leave a tile
+    through its top (match runs past 32 steps, introns past 96 rows),
+    through its left edge (insertions past 32 residues), and that end
+    by i < 2, by j < 0 and at the step budget."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(91)
+    batch = st.RawCigarBatch(128, 1400, mat, OPT, sp=sp, device=cuda_card,
+                             capacity=24)
+    for k in range(24):
+        if k % 3 == 2:                   # random: walks end by j < 0
+            nl, al = int(rng.integers(600, 1400)), int(rng.integers(5, 60))
+            nt4 = rng.integers(0, 4, nl).astype(np.uint8)
+            aas = T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"), al)]
+        else:
+            al = int(rng.integers(60, 90))
+            nt4, aas = _gapped_homolog(rng, T, al, int(rng.integers(150, 700)),
+                                       int(rng.integers(34, 40)))
+        batch.add_raw(nt4, aas, io=29)
+    tb, _, nlv, alv = batch._launch_dp()
+    for steps in (batch.steps(), 150):
+        walk = st.cell_walk(tb, nlv, alv, steps)
+        want = st.cell_walk_plain(tb, nlv, alv, steps)
+        torch.cuda.synchronize()
+        for a, b in zip(walk, want):
+            assert torch.equal(a, b)
+    states, fi, fj = (t.cpu() for t in st.cell_walk_plain(
+        tb, nlv, alv, batch.steps()))
+    assert max(_runs(states, 0)) > 32 and max(_runs(states, 1)) > 32
+    assert max(_runs(states, 3)) > 96
+    assert bool((fi < 2).any()) and bool((fj < 0).any())
+    _, fi, fj = st.cell_walk_plain(tb, nlv, alv, 150)
+    assert bool(((fi >= 2) & (fj >= 0)).any())      # stopped at 150 steps

@@ -43,8 +43,18 @@ def test_signature_matches_c_entry(name):
 @pytest.mark.parametrize("name,widths", [
     ("mp_ext_dp", nasw_ext.EXT_WIDTHS),
     ("mp_scan_cigar", nasw_cigar_scan.SCAN_WIDTHS),
-    ("mp_striped_cigar", nasw_cigar_striped.STRIPE_LANES)])
+    ("mp_striped_cigar", nasw_cigar_striped.STRIPED_WIDTHS)])
 def test_launch_switch_builds_the_wrapper_widths(name, widths):
     _, body = _entry(name)
     cases = tuple(int(c) for c in re.findall(r"case (\d+):", body))
     assert cases == tuple(widths)
+
+
+def test_striped_switch_geometry_is_striped_warps():
+    """mp_striped_cigar picks K4's geometry from W alone; STRIPED_WARPS
+    (what chip_smoke.py and the card tests report) must name the same
+    warps per problem as each case's instantiation."""
+    _, body = _entry("mp_striped_cigar")
+    cases = {int(w): int(nwp) for w, nwp in
+             re.findall(r"case (\d+): MP_B4\(\d+, (\d+)\)", body)}
+    assert cases == nasw_cigar_striped.STRIPED_WARPS
