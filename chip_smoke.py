@@ -6,16 +6,27 @@ shapes, times it, then maps a whole-genome-scale synthetic workload on
 the card and on the host engine and requires byte-identical output.
 
     python3 chip_smoke.py [--genome-mb 200] [--proteins 2000] [--threads N]
+    python3 chip_smoke.py --maps-only [--package DIR]
+
+The second form runs only the e2e workload's three GPU maps, each with
+its host seconds inside the batches' launch(); --package DIR maps with
+the miniprot_tpu_torch of another checkout (a parent commit's unpacked
+tree), so two trees compare in one call.
 
 Phases (any failure exits non-zero and prints no result):
   1. the card: nvidia-smi name and power limit; CUDA and sm_90 required
   2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines,
-     and per K1/K2/K4/K5 instantiation its registers, spill bytes and
+     and per K1-K5 and K7 instantiation its registers, spill bytes and
      count of DPX instructions, named-barrier waits and local
      loads/stores in the SASS (cuobjdump; a spill in K4's B4 forms or
      in K5 fails the run); the SASS that Hopper's packed int16
      intrinsics compile to
-  3. kernels: K1 ext_dp (al 128/512/1024, and at go 0), K2
+  3. kernels: K7 track_prep (the device prep of a raw batch) at K1's
+     four batches and at the engine's W=128 / nl 4096 / 512 and W=32 /
+     nl 2048 / 512 scan batches, exact against its plain version (torch
+     ops) on every element; one launch() of every raw batch family under
+     torch.cuda.set_sync_debug_mode("error") (no stream
+     synchronization); K1 ext_dp (al 128/512/1024, and at go 0), K2
      scan_cigar_dp (al<=512 and al<=32 classes, and W=128 at the
      engine's 512-problem batch), K2 also timed in every geometry
      (warps per problem) it has; K1's device time per problem in a
@@ -37,8 +48,8 @@ Phases (any failure exits non-zero and prints no result):
      sets the launch counts to 0 just before it and reads them after;
      the kernels' device time per run (CUDA events around each launch),
      launches and problems per launch per (kind, width, nl bucket),
-     and the DPs the engine ran on the host, by reason, with their host
-     seconds
+     the DPs the engine ran on the host, by reason, with their host
+     seconds, and the host seconds inside the batches' launch()
   5. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
@@ -48,6 +59,7 @@ the nvidia-smi card line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -80,12 +92,21 @@ K2_OPS_PER_CELL = 64
 # slot: 3 base tests, codon index 4, table lookups 2, sense 1, run
 # bookkeeping 4, k-mer roll 3, hash 13, keep test 2 = 32.
 SKETCH_OPS_PER_SLOT = 32
-# the device prep of a raw ext batch (_prep_seq_device + _logpen_device)
-# per genome row of a problem: ~160 int32 compares, selects, shifts and
-# adds for the codon, the two donor and two acceptor tracks, the folds
-# and the log-penalty search; it reads the nt4 row (1 byte) and writes
-# nas (1), D and A (4 + 4) and the log-penalty row (4)
-PREP_OPS_PER_ROW = 160
+# the device prep of a raw batch (K7; plain: _prep_seq_device +
+# _logpen_device) per genome row of a problem, counted from the
+# recurrences of the problem's own direction (the plain version computes
+# both and selects): the codon 13 int32 operations (4 range tests, 3
+# ands, 2 shifts, 2 ors, the table read, a select), the donor track 23
+# (7 base tests, 7 ands/ors, 5 site-type selects, score read and select,
+# the row-range test and select), the acceptor track 25 (the same and
+# the poly-Y sum), the folds 4: 64 in all; an ext batch's log penalty
+# adds 4 (x = row - 3 al and the threshold count advanced along the
+# rows).  An earlier count, 160, took both directions, and K7 ran below
+# the bound it gave on an H100.  A row reads its nt4 code (1
+# byte) and writes nas (1), D and A (4 + 4) and an ext batch's
+# log-penalty row (4)
+PREP_OPS_PER_ROW = 64
+PREP_LOGPEN_OPS_PER_ROW = 4
 SRC = "miniprot_tpu_torch/kernels/csrc/"
 # contigs of the e2e workload: each is genome_mb / N_CTG long, the
 # strand length the device sketch sees
@@ -146,7 +167,7 @@ def ptxas_spills(log: str) -> dict:
 
 
 def sass_counts(so: str, log: str) -> None:
-    """Print, per K1/K2/K4/K5 instantiation in the built library, how
+    """Print, per K1-K5 and K7 instantiation in the built library, how
     many of its SASS instructions are Hopper DPX forms (VIADDMNMX: add
     then max/min; VIMNMX3: three-way max/min), named-barrier waits and
     local-memory loads and stores (LDL/STL: register spills), beside its
@@ -156,7 +177,7 @@ def sass_counts(so: str, log: str) -> None:
     seen = set()
     for fn, ops in sass_functions(so).items():
         if not any(k in fn for k in ("ext_dp", "scan_cigar", "striped",
-                                     "cell_walk")):
+                                     "cell_walk", "run_walk", "track_prep")):
             continue
         base = [o[:8] if o.startswith("BAR.") else o.split(".")[0]
                 for o in ops]
@@ -295,6 +316,84 @@ def homolog(rng, T, al, nl, mut_rate=0.1):
     return np.frombuffer(b"ACGT", np.uint8)[nt4].copy(), asq.copy()
 
 
+def _same_results(a, b) -> bool:
+    """Two collect() result lists equal (None, ints, CIGAR arrays)."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        (x is None) == (y is None) and (x is None or (
+            len(x) == len(y) and all(np.array_equal(u, v)
+                                     for u, v in zip(x, y))))
+        for x, y in zip(a, b))
+
+
+def check_no_sync(batch, want):
+    """One launch() of a raw batch under torch.cuda.set_sync_debug_mode(
+    "error"), where a stream synchronization (a blocking copy to the
+    card) raises; its results must equal ``want``."""
+    import torch
+    name = type(batch).__name__
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = batch.launch()
+    except RuntimeError as e:
+        fail(f"{name}.launch() synchronizes the stream: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not _same_results(batch.collect(handle), want):
+        fail(f"{name}.launch() under sync debug mode: other results")
+    print(f"[sync] {name}.launch() ({batch.n} problems): no stream "
+          "synchronization", flush=True)
+
+
+def phase_prep(tag, raw, kw):
+    """K7 on one raw batch's inputs (nt8, left, iov, nlv; kw: the rest
+    of prep_tracks' arguments): exact against its plain version on the
+    card (the torch ops) on every element, each timed.  Returns its
+    kernels-line entry, the tracks under "tracks"; its launches are
+    those of all three maps (every raw batch runs it)."""
+    import torch
+
+    from miniprot_tpu_torch.kernels import nasw_ext as ne
+    nt8, left, iov, nlv = raw
+    n, RD = nt8.shape
+    R = kw["n_rows"]
+    ext = kw.get("als") is not None
+
+    def plain():
+        lf = torch.zeros(n, dtype=torch.int8, device=nt8.device) \
+            if left is None else left
+        out = ne._prep_seq_device(nt8, lf, iov, nlv, sp=kw["sp"],
+                                  codon=kw["codon"], n_rows=R)
+        if not ext:
+            return out
+        return (*out, ne._logpen_device(kw["als"], kw["thr"], R, nt8.device))
+
+    got = ne.prep_tracks(*raw, **kw)
+    want = plain()
+    torch.cuda.synchronize()
+    if len(got) != len(want) or not all(torch.equal(a, b)
+                                        for a, b in zip(got, want)):
+        fail(f"track_prep {tag}: kernel != plain version")
+    ms = time_ms(lambda: ne.prep_tracks(*raw, **kw), reps=10)
+    plain_ms = time_ms(plain, reps=5)
+    ops = PREP_OPS_PER_ROW + (PREP_LOGPEN_OPS_PER_ROW if ext else 0)
+    bms, by = bound(n * RD + n * R * (1 + (4 if ext else 0)) + 8 * n * RD,
+                    n * R * ops, INT32_OPS_PER_S)
+    print(f"[K7 track_prep] {tag}: exact vs plain on every element; "
+          f"{ms:.4f} ms; plain (_prep_seq_device"
+          f"{' + _logpen_device' if ext else ''}, torch ops) {plain_ms:.3f} "
+          f"ms; bound {bms:.4f} ms ({by})", flush=True)
+    return dict(name=f"track_prep[{tag}]", route="cuda",
+                source=SRC + "track_prep.cu",
+                replaces="miniprot_tpu/kernels/nasw_pallas.py:638",
+                counter="track_prep",
+                paths=("default", "striped route", "-O 0"), max_abs_err=0,
+                ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, tracks=got)
+
+
 def phase_ext(al_pad, nl_pad, n, seed, go=None):
     """K1 at one bucket; go=0 takes its 8-lane lazy-F form."""
     import numpy as np
@@ -328,13 +427,9 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
     nlv = ne._upload(batch.nlv[:n], dev)
     raw = (ne._upload(batch.nt[:n], dev), ne._upload(batch.leftb[:n], dev),
            ne._upload(batch.iov[:n], dev), nlv)
-
-    def prep():
-        return (*ne._prep_seq_device(*raw, sp=batch.sp, codon=T.codon,
-                                     n_rows=batch.nl),
-                ne._logpen_device(als, thr, batch.nl, dev))
-
-    nas, D, A, logpen = prep()
+    k7 = phase_prep(f"ext {tag},n={n}", raw, dict(
+        sp=batch.sp, codon=T.codon, n_rows=batch.nl, als=als, thr=thr))
+    nas, D, A, logpen = k7.pop("tracks")
     args = (nas, D, A, logpen, nlv, als, ne._upload(batch.prof[:n], dev),
             ne._opts(batch))
     got = ne.ext_dp(*args)
@@ -351,11 +446,8 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
                           else DPF_EXT_RIGHT, **kw)[:3]
         if tuple(ref) != r:
             fail(f"ext_dp {tag}: {r} != host engine {tuple(ref)}")
+    check_no_sync(batch, res)
     ms = time_ms(lambda: ne.ext_dp(*args), reps=10)
-    prep_ms = time_ms(prep, reps=5)
-    R = batch.nl
-    pbms, pby = bound(n * (R + 8) + n * R * (1 + 4) + 2 * n * (R + 8) * 4,
-                      n * R * PREP_OPS_PER_ROW, INT32_OPS_PER_S)
     row_sum = int(rows.sum())
     cells = row_sum * al_pad
     nbytes = row_sum * (1 + 4 + 4 + 4 + 4) + n * (22 * al_pad + 12)
@@ -363,17 +455,15 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
     print(f"[K1 ext_dp] {tag} n={n}: exact vs plain and "
           f"host engine; {ms:.3f} ms, {cells} cells ({row_sum} rows run), "
           f"{cells / ms / 1e6:.2f} GCUPS; plain {plain_ms:.1f} ms; "
-          f"bound {bms:.4f} ms ({by}); device prep of its tracks "
-          f"(_prep_seq_device + _logpen_device, torch ops) {prep_ms:.3f} ms, "
-          f"bound {pbms:.4f} ms ({pby}); {ne.EXT_WARPS[al_pad]} warps per "
+          f"bound {bms:.4f} ms ({by}); {ne.EXT_WARPS[al_pad]} warps per "
           "problem", flush=True)
-    return dict(name=f"ext_dp[{tag}]", route="cuda",
-                source=SRC + "ext_dp.cu",
-                replaces="miniprot_tpu/kernels/nasw_pallas.py:89",
-                counter="ext_dp",
-                paths=("default", "striped route") if go is None
-                else ("-O 0",), max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+    return [dict(name=f"ext_dp[{tag}]", route="cuda",
+                 source=SRC + "ext_dp.cu",
+                 replaces="miniprot_tpu/kernels/nasw_pallas.py:89",
+                 counter="ext_dp",
+                 paths=("default", "striped route") if go is None
+                 else ("-O 0",), max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, library_ms=None), k7]
 
 
 def probe_ext_capacity(al_pad, nl_pad, ns, seed):
@@ -399,11 +489,10 @@ def probe_ext_capacity(al_pad, nl_pad, ns, seed):
     thr = ne._logpen_thresholds(float(np.float32(opt.ie_coef)), batch.nl)
     als = ne._upload(batch.als, dev)
     nlv = ne._upload(batch.nlv, dev)
-    nas, D, A = ne._prep_seq_device(
+    nas, D, A, logpen = ne.prep_tracks(
         ne._upload(batch.nt, dev), ne._upload(batch.leftb, dev),
         ne._upload(batch.iov, dev), nlv, sp=batch.sp, codon=T.codon,
-        n_rows=batch.nl)
-    logpen = ne._logpen_device(als, thr, batch.nl, dev)
+        n_rows=batch.nl, als=als, thr=thr)
     prof = ne._upload(batch.prof, dev)
     parts = []
     for n in ns:
@@ -416,10 +505,10 @@ def probe_ext_capacity(al_pad, nl_pad, ns, seed):
           flush=True)
 
 
-def phase_scan(W, nl_pad, n, seed):
+def phase_scan(W, nl_pad, n, seed, prep=False):
     """K2 and K3 on n problems of class width W (n may exceed the
     class's own capacity: the engine's cig_capacity sizes real
-    launches)."""
+    launches); prep: K7 on the batch's raw tracks too."""
     import numpy as np
     import torch
 
@@ -442,7 +531,16 @@ def phase_scan(W, nl_pad, n, seed):
         cases.append((nsq, asq))
     R = batch._rows()
     nlv, alv = batch._lens()
-    args = (*batch._tracks(), nlv, alv, ne._upload(batch.prof[:n], dev),
+    tag = f"W={W},nl={nl_pad}" + ("" if n == cls.CAPACITY else f",n={n}")
+    if prep:
+        k7 = phase_prep(f"scan W={W},nl={nl_pad},n={n}", (
+            ne._upload(batch.nt[:n, :R + 8], dev), None,
+            ne._upload(batch.iov[:n], dev), nlv), dict(
+            sp=batch.sp, codon=T.codon, n_rows=R))
+        tracks = k7.pop("tracks")
+    else:
+        tracks = batch._tracks()
+    args = (*tracks, nlv, alv, ne._upload(batch.prof[:n], dev),
             (batch.go, batch.ge, batch.fs), R)
     tb, hint, score = sk.scan_cigar_dp(*args)
     torch.cuda.synchronize()
@@ -471,6 +569,7 @@ def phase_scan(W, nl_pad, n, seed):
             fail(f"scan_cigar_dp W={W}: result != host engine")
     if sum(r is None for r in res) > n // 10:
         fail(f"run_walk W={W}: too many walks hit the round cap")
+    check_no_sync(batch, res)
     ms = time_ms(lambda: sk.scan_cigar_dp(*args), reps=5)
     geo = {w: time_ms(lambda: sk.scan_cigar_dp(*args, warps=w), reps=3)
            for w in sk.SCAN_GEOMETRIES[W]}
@@ -484,7 +583,6 @@ def phase_scan(W, nl_pad, n, seed):
     wbytes = steps * 7 + n * 16
     wbms, wby = bound(wbytes, steps * 12, INT32_OPS_PER_S)
     small = W <= sk.SMALL_W
-    tag = f"W={W},nl={nl_pad}" + ("" if n == cls.CAPACITY else f",n={n}")
     print(f"[K2 scan_cigar_dp] W={W} nl={nl_pad} n={n}: exact vs plain and "
           f"host engine; {ms:.3f} ms ({1e3 * ms / n:.2f} us per problem), "
           f"{cells} cells, {cells / ms / 1e6:.2f} GCUPS; plain "
@@ -494,7 +592,7 @@ def phase_scan(W, nl_pad, n, seed):
           f"{steps} rounds; plain {walk_plain_ms:.1f} ms; bound "
           f"{wbms:.5f} ms ({wby})", flush=True)
     k2 = "scan_cigar_dp_small" if small else "scan_cigar_dp"
-    return [dict(name=f"{k2}[{tag}]", route="cuda",
+    return ([k7] if prep else []) + [dict(name=f"{k2}[{tag}]", route="cuda",
                  source=SRC + "scan_cigar.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:111",
                  counter=k2, paths=("default",), max_abs_err=0, ms=ms,
@@ -575,10 +673,12 @@ def phase_striped(W, nl_pad, n, seed, go, k2_ms):
     walk_plain_ms = 1e3 * (time.perf_counter() - t0)
     if not all(torch.equal(a, b) for a, b in zip(walk, walk_p)):
         fail(f"cell_walk W={W}: kernel != plain version")
-    for (nsq, asq), r in zip(cases, batch.collect((*walk, score))):
+    res = batch.collect((*walk, score))
+    for (nsq, asq), r in zip(cases, res):
         rsc, _, _, rcig = native.dp16(nsq, asq, flag=DPF_CIGAR, **kw)
         if r[0] != rsc or not np.array_equal(r[1], rcig):
             fail(f"striped_cigar_dp W={W} go={go}: result != host engine")
+    check_no_sync(batch, res)
     ms = time_ms(lambda: st.striped_cigar_dp(*args), reps=5)
     walk_ms = time_ms(lambda: st.cell_walk(tb, nlv, alv, steps), reps=10)
     rows, cells = _striped_cells(batch, st.VL)
@@ -801,7 +901,9 @@ def _report(tag, gpu, host, threads):
           f"(kernel busy share {busy / gpu['wall']:.4f})", flush=True)
     print(f"[e2e {tag}] GPU map stages (host wall s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gpu["stages"].items()))
-          + f"; in collects (sync + decode) {gpu['blocked']:.3f}; "
+          + f"; inside the batches' launch() {stats['launch_s']:.3f} "
+          f"(K7 device {gpu['kernel_ms'].get('mp_track_prep', 0.0):.1f} ms); "
+          f"in collects (sync + decode) {gpu['blocked']:.3f}; "
           f"{gpu['rounds']} flush rounds", flush=True)
 
 
@@ -830,8 +932,9 @@ def phase_e2e(genome_mb, n_prot, threads):
         print(f"[e2e] workload {genome_mb} Mb x {n_prot} proteins: "
               f"generated {t1 - t0:.1f} s, index {t2 - t1:.1f} s", flush=True)
         profiler.enabled = True
-        k123 = ("ext_dp", "scan_cigar_dp", "scan_cigar_dp_small", "run_walk")
-        k45 = ("ext_dp", "striped_cigar_dp", "cell_walk")
+        k123 = ("track_prep", "ext_dp", "scan_cigar_dp",
+                "scan_cigar_dp_small", "run_walk")
+        k45 = ("track_prep", "ext_dp", "striped_cigar_dp", "cell_walk")
         gpu = _map(mi, faa, MapOpt(), "cuda", threads, k123)
         host = _map(mi, faa, MapOpt(), None, threads)
         os.environ["MINIPROT_TPU_CIG_IMPL"] = "striped"
@@ -877,12 +980,95 @@ def phase_e2e(genome_mb, n_prot, threads):
             "-O 0": gpu0["launches"], "index": sk_launches}
 
 
+@contextlib.contextmanager
+def _timed_batch_launches():
+    """Add up the host seconds inside every batch class's launch(), as
+    the engine's launch_s does; for a tree whose engine has no such stat
+    (before K7).  Yields a one-item list holding the sum."""
+    from miniprot_tpu_torch.kernels import nasw_cigar_scan as sk
+    from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
+    from miniprot_tpu_torch.kernels import nasw_ext as ne
+    total, saved = [0.0], []
+
+    def timed(fn):
+        def launch(self):
+            t0 = time.monotonic()
+            try:
+                return fn(self)
+            finally:
+                total[0] += time.monotonic() - t0
+        return launch
+
+    classes = {c for m in (ne, sk, st) for c in vars(m).values()
+               if isinstance(c, type) and "launch" in vars(c)}
+    for cls in classes:
+        saved.append((cls, cls.launch))
+        cls.launch = timed(cls.launch)
+    try:
+        yield total
+    finally:
+        for cls, fn in saved:
+            cls.launch = fn
+
+
+def phase_maps(genome_mb, n_prot, threads):
+    """The e2e workload's three GPU maps alone (no host maps, no kernel
+    phases), each with its proteins/s, the host seconds inside the
+    batches' launch(), align_rounds and the kernels' device time: the
+    comparison of two trees (--package) in one call."""
+    from miniprot_tpu_torch import device
+    from miniprot_tpu_torch.index import Index
+    from miniprot_tpu_torch.options import IdxOpt, MapOpt
+    from miniprot_tpu_torch.sysutil import profiler
+    from miniprot_tpu_torch.testgen import make_workload
+    legacy = not hasattr(device.GpuExtEngine, "_launch")
+    o0 = MapOpt()
+    o0.go = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as d:
+        fa, faa = os.path.join(d, "g.fa"), os.path.join(d, "q.faa")
+        make_workload(fa, faa, genome_len=genome_mb * 1_000_000,
+                      n_genes=n_prot, seed=11, n_ctg=N_CTG,
+                      max_intron=20_000, rev_frac=0.5, fs_frac=0.1)
+        mi = Index.build(fa, IdxOpt(), n_threads=threads)
+        profiler.enabled = True
+        for tag, opt, impl in (("default", MapOpt(), None),
+                               ("striped route", MapOpt(), "striped"),
+                               ("-O 0", o0, None)):
+            if impl:
+                os.environ["MINIPROT_TPU_CIG_IMPL"] = impl
+            try:
+                with (_timed_batch_launches() if legacy
+                      else contextlib.nullcontext([None])) as lt:
+                    run = _map(mi, faa, opt, "cuda", threads)
+            finally:
+                os.environ.pop("MINIPROT_TPU_CIG_IMPL", None)
+            launch_s = run["stats"].get("launch_s", lt[0])
+            busy = sum(run["kernel_ms"].values()) / 1e3
+            print(f"[maps {tag}] {run['n'] / run['wall']:.2f} proteins/s "
+                  f"({run['wall']:.2f} s); inside the batches' launch() "
+                  f"{launch_s:.3f} s{' (timed around launch())' if legacy else ''}"
+                  f"; align_rounds {run['stages'].get('align_rounds', 0):.3f}; "
+                  f"in collects {run['blocked']:.3f}; kernels {busy:.3f} s: "
+                  + ", ".join(f"{k} {v:.1f} ms"
+                              for k, v in sorted(run["kernel_ms"].items())),
+                  flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-mb", type=int, default=200)
     ap.add_argument("--proteins", type=int, default=2000)
     ap.add_argument("--threads", type=int, default=os.cpu_count() or 1)
+    ap.add_argument("--maps-only", action="store_true",
+                    help="only the e2e workload's three GPU maps, each with "
+                    "its host seconds inside the batches' launch()")
+    ap.add_argument("--package", metavar="DIR",
+                    help="import miniprot_tpu_torch from DIR (another "
+                    "checkout, e.g. a parent commit's) instead of this one")
     args = ap.parse_args()
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -901,6 +1087,13 @@ def main() -> None:
     from miniprot_tpu_torch import kernels
     from miniprot_tpu_torch.sysutil import disable_numpy_thp
     disable_numpy_thp()
+    if args.maps_only:
+        print(f"[maps] miniprot_tpu_torch from "
+              f"{os.path.dirname(os.path.dirname(kernels.__file__))}",
+              flush=True)
+        phase_maps(args.genome_mb, args.proteins, args.threads)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return
     t0 = time.perf_counter()
     kernels.build(force=True)
     print(f"[build] {kernels.SO} in {time.perf_counter() - t0:.1f} s",
@@ -912,14 +1105,15 @@ def main() -> None:
     sass_counts(kernels.SO, kernels.BUILD_LOG)
     sass_int16x2_probe()
 
-    entries = [phase_ext(128, 2112, 128, 1), phase_ext(512, 8448, 128, 2),
-               phase_ext(1024, 16896, 512, 6),
-               phase_ext(128, 2112, 128, 13, go=0)]
+    # K1 and K7 at K1's batches
+    entries = [*phase_ext(128, 2112, 128, 1), *phase_ext(512, 8448, 128, 2),
+               *phase_ext(1024, 16896, 512, 6),
+               *phase_ext(128, 2112, 128, 13, go=0)]
     entries += phase_scan(128, 4096, 128, 3)
     entries += phase_scan(512, 2048, 128, 4)
-    entries += phase_scan(32, 2048, 512, 5)
+    entries += phase_scan(32, 2048, 512, 5, prep=True)
     # the engine's scan batch at W=128 / nl 4096 (device.cig_capacity)
-    entries += phase_scan(128, 4096, 512, 14)
+    entries += phase_scan(128, 4096, 512, 14, prep=True)
     probe_ext_capacity(1024, 67584, (128, 512), 15)
     probe_ext_capacity(128, 67584, (128, 1024), 16)
     k2_ms = {e.pop("shape"): e["ms"] for e in entries if "shape" in e}

@@ -170,6 +170,9 @@ class GpuExtEngine:
         # spends running them (the round-cap redos run in collects)
         self.host_reasons: dict[str, int] = {}
         self.host_dp_s = 0.0
+        # host seconds spent inside the batches' launch() calls (upload,
+        # prep and kernel launches, and any wait for the card there)
+        self.launch_s = 0.0
 
     # ---- request intake ----
 
@@ -196,6 +199,14 @@ class GpuExtEngine:
         tot = self.bucket_problems.setdefault(key, [0, 0])
         tot[0] += n
         tot[1] = max(tot[1], n)
+
+    def _launch(self, batch):
+        """batch.launch(), its host seconds added to launch_s."""
+        t0 = time.monotonic()
+        try:
+            return batch.launch()
+        finally:
+            self.launch_s += time.monotonic() - t0
 
     def _prep(self, job, ext_left, io):
         return nk.prep_problem(job.nsq, job.asq, sp=self.sp,
@@ -254,7 +265,7 @@ class GpuExtEngine:
                         nt4 = nt4[::-1]
                         aas = aas[::-1]
                     batch.add_raw(nt4, aas, io=job.io, ext_left=job.ext_left)
-                pending.append((chunk, batch, batch.launch()))
+                pending.append((chunk, batch, self._launch(batch)))
             for c0 in range(0, len(old_all), nk.B_LANES):
                 chunk = old_all[c0:c0 + nk.B_LANES]
                 batch = nk.ExtBatch(al_b, nl_b, self.mat, self.scalars,
@@ -263,7 +274,7 @@ class GpuExtEngine:
                     job = ext_jobs[i]
                     nas, aas, d, a = self._prep(job, job.ext_left, job.io)
                     batch.add(nas, aas, d, a, io=job.io)
-                pending.append((chunk, batch, batch.launch()))
+                pending.append((chunk, batch, self._launch(batch)))
         for chunk, batch, _ in pending:
             self.n_device += len(chunk)
             self.batches["ext"] += 1
@@ -366,7 +377,7 @@ class GpuExtEngine:
                 o_idxs, o_batch, o_handles = pending.pop(0)
                 self._decode_cig_one(cig_jobs, o_idxs, o_batch, o_handles)
                 outstanding[0] -= o_batch.tb_bytes()
-            pending.append((idxs, batch, batch.launch()))
+            pending.append((idxs, batch, self._launch(batch)))
             outstanding[0] += need
             self.peak_pending_tb = max(self.peak_pending_tb, outstanding[0])
             kind = _cig_kind(batch)

@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches its CUDA kernel (plain-version calls on CPU tensors never count)
 LAUNCHES = {"ext_dp": 0, "scan_cigar_dp": 0, "scan_cigar_dp_small": 0,
             "run_walk": 0, "striped_cigar_dp": 0, "striped_cigar_dp32": 0,
-            "cell_walk": 0, "sketch_orf": 0}
+            "cell_walk": 0, "sketch_orf": 0, "track_prep": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,6 +59,8 @@ _SIGNATURES = {
     # seq codon codon13 hs ps keep | ns0 ns1 ns2 off1 off2 | min_aa_len
     # kmer mod_bit | stream
     "mp_sketch_orf": [_vp] * 6 + [_ll] * 5 + [_i] * 3 + [_vp],
+    # nt8 left io nl al nas D A logpen | n R | params (host) | stream
+    "mp_track_prep": [_vp] * 9 + [_i] * 2 + [_vp] * 2,
 }
 
 

@@ -33,7 +33,7 @@ import torch
 
 from .. import tables as _tables
 from . import LAUNCHES, call, require, resolve_device, stream_ptr, warps_for
-from .nasw_ext import _prep_seq_device, _upload
+from .nasw_ext import _upload, prep_tracks
 
 NEG16 = -32768           # int16 saturation floor
 NEGI = -(1 << 29)        # scan identity (below any clipped int16 value)
@@ -311,7 +311,8 @@ def run_walk(tb, hint, nlv, alv, rounds):
     count cells.  Returns states (n, rounds) int8 (15 = padding),
     counts (n, rounds) int16 (uint16 payload), i_final, j_final (n,)
     int32; a problem with i_final >= 2 and j_final >= 0 hit the round
-    cap.  CUDA tensors launch K3; CPU tensors run run_walk_plain."""
+    cap.  CUDA tensors launch K3 (a warp per problem); CPU tensors run
+    run_walk_plain."""
     if not tb.is_cuda:
         return run_walk_plain(tb, hint, nlv, alv, rounds)
     require(tb, torch.int16, 3, "tb")
@@ -463,7 +464,7 @@ class HostTracks(TrackBatch):
 
 class RawTracks(TrackBatch):
     """Raw nt4 windows; the tracks are rebuilt on the device
-    (_prep_seq_device).  CIGAR jobs here are forward-strand and carry no
+    (prep_tracks: K7).  CIGAR jobs here are forward-strand and carry no
     --spsc track, so the folded donor stream is non-negative by
     construction."""
 
@@ -485,9 +486,8 @@ class RawTracks(TrackBatch):
 
     def _tracks(self):
         n, dev, R = self.n, self.device, self._rows()
-        return _prep_seq_device(
-            _upload(self.nt[:n, :R + 8], dev),
-            torch.zeros(n, dtype=torch.int8, device=dev),
+        return prep_tracks(
+            _upload(self.nt[:n, :R + 8], dev), None,
             _upload(self.iov[:n], dev), _upload(self.nlv[:n], dev),
             sp=self.sp, codon=_tables.get_tables(self.trans_code).codon,
             n_rows=R)

@@ -30,7 +30,9 @@ Layout here is problem-major: every per-problem array has the problem
 on dim 0 (nas (n, R), D/A (n, R+8), profile (n, 22, AL)); the TPU's
 128-lane batches, 264-row grid chunks and packed 6-select profile are
 not carried over.  ``ext_dp`` launches K1 for CUDA tensors and runs
-``ext_dp_plain`` for CPU tensors.
+``ext_dp_plain`` for CPU tensors; ``prep_tracks`` builds a raw batch's
+tracks the same way, K7 on the card and the torch-ops port of the JAX
+device prep (``_prep_seq_device``, ``_logpen_device``) on the CPU.
 """
 
 from __future__ import annotations
@@ -236,7 +238,8 @@ def _logpen_thresholds(ie_coef, max_x):
 
 
 # ---------------------------------------------------------------------------
-# Device-side problem prep (torch ops; XLA ops in the JAX package)
+# Device-side problem prep: kernel K7 (prep_tracks) and its plain version
+# (torch ops; XLA ops in the JAX package)
 # ---------------------------------------------------------------------------
 
 
@@ -372,6 +375,84 @@ def _logpen_device(als, thr, n_rows, device):
     thr_t = torch.as_tensor(thr, dtype=torch.int32, device=device)
     return torch.searchsorted(thr_t, x.contiguous(), right=True,
                               out_int32=True)
+
+
+# K7's parameter block, passed by value at launch (track_prep.cu's
+# TrackParams, field for field): the codon table, the splice scores and
+# the log-penalty thresholds.  The engine sends ie_coef > 8 to the host,
+# and 8 * log2(101376) + .5 gives 133 thresholds in the largest bucket.
+TRACK_THR_CAP = 160
+TRACK_PARAMS = np.dtype([("codon", np.uint8, 64), ("sp", np.int32, 6),
+                         ("nthr", np.int32), ("thr", np.int32,
+                                              TRACK_THR_CAP)])
+
+
+def track_params(sp, codon, thr=()) -> np.ndarray:
+    """K7's parameter block for a batch: a (1,) TRACK_PARAMS array;
+    more than TRACK_THR_CAP thresholds raise."""
+    if len(thr) > TRACK_THR_CAP:
+        raise ValueError(f"track_prep: {len(thr)} log-penalty thresholds, "
+                         f"the kernel takes at most {TRACK_THR_CAP}")
+    p = np.zeros(1, TRACK_PARAMS)
+    p["codon"][0] = np.asarray(codon, np.uint8)
+    p["sp"][0] = np.asarray(sp, np.int32).reshape(-1)[:6]
+    p["nthr"] = len(thr)
+    p["thr"][0, :len(thr)] = thr
+    return p
+
+
+def _ptr(t):
+    """A tensor's device pointer; None (NULL) for an absent input."""
+    return None if t is None else t.data_ptr()
+
+
+def prep_tracks(nt8, left, iov, nlv, *, sp, codon, n_rows, als=None,
+                thr=None):
+    """The DP input tracks of a raw batch from its nt4 codes.
+
+    nt8 (n, n_rows+8) int8 codes (already reversed for left-extension
+    problems); left (n,) int8 (nonzero: a left extension) or None (all
+    forward); iov, nlv (n,) int32; als (n,) int32 for an ext batch,
+    with thr its log-penalty thresholds (_logpen_thresholds).  Returns
+    nas (n, n_rows) int8, D, A (n, n_rows+8) int32 and, with als,
+    logpen (n, n_rows) int32.  CUDA tensors launch K7, which takes the
+    tables by value (no copy to the card); CPU tensors run
+    _prep_seq_device and _logpen_device.
+    """
+    thr = tuple(thr or ())
+    params = track_params(sp, codon, thr)
+    n, RD = nt8.shape
+    if not nt8.is_cuda:
+        if left is None:
+            left = torch.zeros(n, dtype=torch.int8)
+        out = _prep_seq_device(nt8, left, iov, nlv, sp=sp, codon=codon,
+                               n_rows=n_rows)
+        if als is None:
+            return out
+        return (*out, _logpen_device(als, thr, n_rows, nt8.device))
+    require(nt8, torch.int8, 2, "nt8")
+    require(iov, torch.int32, 1, "iov")
+    require(nlv, torch.int32, 1, "nlv")
+    if left is not None:
+        require(left, torch.int8, 1, "left")
+    if als is not None:
+        require(als, torch.int32, 1, "als")
+    if RD != n_rows + 8 or any(t is not None and t.shape[0] != n
+                               for t in (left, iov, nlv, als)):
+        raise ValueError("prep_tracks: inconsistent shapes")
+    dev = nt8.device
+    nas = torch.empty((n, n_rows), dtype=torch.int8, device=dev)
+    D = torch.empty((n, RD), dtype=torch.int32, device=dev)
+    A = torch.empty((n, RD), dtype=torch.int32, device=dev)
+    logpen = (None if als is None
+              else torch.empty((n, n_rows), dtype=torch.int32, device=dev))
+    if n:
+        call("mp_track_prep", nt8.data_ptr(), _ptr(left), iov.data_ptr(),
+             nlv.data_ptr(), _ptr(als), nas.data_ptr(), D.data_ptr(),
+             A.data_ptr(), _ptr(logpen), n, n_rows, params.ctypes.data,
+             stream_ptr(nt8))
+        LAUNCHES["track_prep"] += 1
+    return (nas, D, A) if als is None else (nas, D, A, logpen)
 
 
 def _host_logpen(ie_coef, n_rows, al):
@@ -612,7 +693,7 @@ class ExtBatch:
 
 class RawExtBatch:
     """Extension problems shipped as raw nt4 windows; the tracks are
-    rebuilt on the device (_prep_seq_device) before K1."""
+    rebuilt on the device (prep_tracks: K7) before K1."""
 
     def __init__(self, al_pad: int, nl_pad: int, mat: np.ndarray,
                  opt_scalars, *, sp, trans_code: int = 1, device=None,
@@ -652,15 +733,17 @@ class RawExtBatch:
         return b
 
     def launch(self):
+        """K7 then K1; returns the (n, 3) result tensor without waiting
+        for the card."""
         n, dev = self.n, self.device
         thr = _logpen_thresholds(float(np.float32(self.ie_coef)), self.nl)
         als = _upload(self.als[:n], dev)
         nlv = _upload(self.nlv[:n], dev)
-        nas, D, A = _prep_seq_device(
+        nas, D, A, logpen = prep_tracks(
             _upload(self.nt[:n], dev), _upload(self.leftb[:n], dev),
             _upload(self.iov[:n], dev), nlv, sp=self.sp,
-            codon=tables.get_tables(self.trans_code).codon, n_rows=self.nl)
-        logpen = _logpen_device(als, thr, self.nl, dev)
+            codon=tables.get_tables(self.trans_code).codon, n_rows=self.nl,
+            als=als, thr=thr)
         return ext_dp(nas, D, A, logpen, nlv, als,
                       _upload(self.prof[:n], dev), _opts(self))
 

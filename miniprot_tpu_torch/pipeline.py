@@ -205,6 +205,7 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
                                  in engine.bucket_problems.items()},
                              host_reasons=dict(engine.host_reasons),
                              host_dp_s=engine.host_dp_s,
+                             launch_s=engine.launch_s,
                              peak_pending_tb=engine.peak_pending_tb)
         if ckpt_f is not None:
             ckpt_f.close()

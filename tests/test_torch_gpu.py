@@ -1,5 +1,7 @@
-"""The port's CUDA kernels K1-K6 against their plain PyTorch versions on
-the card (exact: the DPs and the sketch are integer arithmetic).
+"""The port's CUDA kernels K1-K7 against their plain PyTorch versions on
+the card (exact: the DPs, the sketch and the prep are integer
+arithmetic), and the raw batches' launches free of stream
+synchronizations.
 
 Marked ``gpu``: they need an NVIDIA card of compute capability >= 9.0
 and skip elsewhere.  Run on the card with
@@ -57,11 +59,10 @@ def _ext_inputs(batch):
     thr = ne._logpen_thresholds(float(np.float32(batch.ie_coef)), batch.nl)
     als = ne._upload(batch.als[:n], dev)
     nlv = ne._upload(batch.nlv[:n], dev)
-    nas, D, A = ne._prep_seq_device(
+    nas, D, A, logpen = ne.prep_tracks(
         ne._upload(batch.nt[:n], dev), ne._upload(batch.leftb[:n], dev),
         ne._upload(batch.iov[:n], dev), nlv, sp=batch.sp,
-        codon=tables.get_tables(1).codon, n_rows=batch.nl)
-    logpen = ne._logpen_device(als, thr, batch.nl, dev)
+        codon=tables.get_tables(1).codon, n_rows=batch.nl, als=als, thr=thr)
     return (nas, D, A, logpen, nlv, als, ne._upload(batch.prof[:n], dev),
             ne._opts(batch))
 
@@ -103,11 +104,7 @@ def _scan_batch(dev, W, nl_pad, n, seed):
 
 def _scan_inputs(batch):
     n, dev, R = batch.n, batch.device, batch._rows()
-    nas, D, A = ne._prep_seq_device(
-        ne._upload(batch.nt[:n, :R + 8], dev),
-        torch.zeros(n, dtype=torch.int8, device=dev),
-        ne._upload(batch.iov[:n], dev), ne._upload(batch.nlv[:n], dev),
-        sp=batch.sp, codon=tables.get_tables(1).codon, n_rows=R)
+    nas, D, A = batch._tracks()
     return (nas, D, A, ne._upload(batch.nlv[:n], dev),
             ne._upload(batch.alv[:n], dev), ne._upload(batch.prof[:n], dev),
             (batch.go, batch.ge, batch.fs), R)
@@ -472,3 +469,159 @@ def test_walk_kernel_tiles_and_ends(cuda_card):
     assert bool((fi < 2).any()) and bool((fj < 0).any())
     _, fi, fj = st.cell_walk_plain(tb, nlv, alv, 150)
     assert bool(((fi >= 2) & (fj >= 0)).any())      # stopped at 150 steps
+
+
+def _prep_inputs(dev, n, R, seed, *, sp_model=1, code=1, ie_coef=0.5,
+                 nls=()):
+    """A raw batch's K7 inputs on the card: nt4 codes with N, mixed
+    left/right problems, io 0-60, the given lengths first."""
+    rng = np.random.default_rng(seed)
+    nt8 = rng.choice(np.arange(5), (n, R + 8),
+                     p=[.24, .24, .24, .24, .04]).astype(np.int8)
+    nlv = rng.integers(1, R + 1, n).astype(np.int32)
+    nlv[:len(nls[:n])] = nls[:n]
+    arrs = (nt8, rng.integers(0, 2, n).astype(np.int8),
+            rng.integers(0, 61, n).astype(np.int32), nlv,
+            rng.integers(1, 1025, n).astype(np.int32))
+    nt8, left, iov, nlv, als = (torch.from_numpy(a).to(dev) for a in arrs)
+    kw = dict(sp=tables.splice_model_scores(sp_model),
+              codon=tables.get_tables(code).codon, n_rows=R,
+              thr=ne._logpen_thresholds(float(np.float32(ie_coef)), R))
+    return (nt8, left, iov, nlv), als, kw
+
+
+@pytest.mark.parametrize("n,R,sp_model,code,ie_coef", [
+    (1, 2112, 1, 1, 0.5),
+    (3, 700, 2, 11, 0.5),          # R + 8 not a multiple of the strip
+    (129, 2111, 1, 1, 0.5),        # rows not 16-byte aligned
+    (37, 4096, 2, 1, 8.0),
+    (2, 101376, 1, 11, 8.0),       # the largest bucket, most thresholds
+])
+def test_prep_kernel_matches_plain(cuda_card, n, R, sp_model, code, ie_coef):
+    """K7 against _prep_seq_device + _logpen_device on every element, pad
+    rows included: ext batches (left flags and the log penalty) and
+    forward CIGAR batches (no left flags, no log penalty)."""
+    raw, als, kw = _prep_inputs(cuda_card, n, R, n + R, sp_model=sp_model,
+                                code=code, ie_coef=ie_coef,
+                                nls=(1, 2, 3, 4, R, R - 1, 5))
+    got = ne.prep_tracks(*raw, als=als, **kw)
+    want = ne.prep_tracks(*(t.cpu() for t in raw), als=als.cpu(), **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    kw.pop("thr")
+    got = ne.prep_tracks(raw[0], None, *raw[2:], **kw)
+    want = ne.prep_tracks(raw[0].cpu(), None, *(t.cpu() for t in raw[2:]),
+                          **kw)
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _raw_batches(dev):
+    """One small batch of each raw family, filled."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(41)
+    out = [_ext_batch(dev, 128, 600, 12, 3)]
+    for cls, W in ((sk.RawScanCigarBatch, 128), (sk.SmallScanCigarBatch, 32),
+                   (st.RawCigarBatch, 128), (st.SmallCigarBatch, 32)):
+        batch = cls(W, 600, mat, OPT, sp=sp, device=dev, capacity=12)
+        for _ in range(12):
+            nl = int(rng.integers(3, 600))
+            al = int(rng.integers(1, W + 1))
+            batch.add_raw(rng.integers(0, 5, nl).astype(np.uint8),
+                          T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"),
+                                            al)], io=29)
+        out.append(batch)
+    return out
+
+
+def test_raw_launches_do_not_synchronize(cuda_card):
+    """launch() of every raw batch family (K7 and its DP and walk
+    kernels) queues its work without a stream synchronization: under
+    torch.cuda.set_sync_debug_mode("error") a blocking copy raises.  The
+    results equal those of a launch outside the mode."""
+    batches = _raw_batches(cuda_card)
+    for batch in batches:          # build the library, warm the allocators
+        batch.run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [batch.launch() for batch in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for batch, h in zip(batches, handles):
+        for got, want in zip(batch.collect(h), batch.run()):
+            assert (got is None) == (want is None)
+            if got is None:
+                continue
+            assert len(got) == len(want)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _walk_case(dev, W, n, nl_pad, seed):
+    """tb/hint planes of n problems from the scan plain version on the
+    card: homologs (long match runs) beside random pairs."""
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(seed)
+    cls = sk.SmallScanCigarBatch if W == 32 else sk.RawScanCigarBatch
+    batch = cls(W, nl_pad, mat, OPT, sp=sp, device=dev, capacity=n)
+    for k in range(n):
+        al = int(rng.integers(1, W + 1))
+        if k % 2:
+            nt4, aas = _homolog(rng, T, al, int(rng.integers(3, nl_pad)))
+        else:
+            nt4 = rng.integers(0, 5, int(rng.integers(3, nl_pad))).astype(
+                np.uint8)
+            aas = T.aa20[rng.choice(list(b"ARNDCQEGHILKMFPSTWYV"), al)]
+        batch.add_raw(nt4, aas, io=29)
+    nlv, alv = batch._lens()
+    tb, hint, _ = sk.scan_cigar_dp_plain(
+        *batch._tracks(), nlv, alv, ne._upload(batch.prof[:n], dev),
+        (batch.go, batch.ge, batch.fs), batch._rows())
+    return tb, hint, nlv, alv, batch.rounds()
+
+
+def _random_planes(dev, W, n, TR, seed):
+    """Planes no DP writes: random states 0-9 under random upper word
+    bits, now and then one of the stepless states 10-15; hints mostly
+    0-3, now and then any uint16 payload.  The walks end by i < 2, by
+    j < 0 with i >= 2, and at the round cap."""
+    rng = np.random.default_rng(seed)
+    word = rng.integers(0, 10, (n, TR, W)) | rng.integers(0, 2048,
+                                                           (n, TR, W)) << 4
+    word = np.where(rng.random((n, TR, W)) < 0.002,
+                    rng.integers(10, 16, (n, TR, W)), word)
+    hint = np.where(rng.random((n, TR, W)) < 0.01,
+                    rng.integers(-32768, 32768, (n, TR, W)),
+                    rng.integers(0, 4, (n, TR, W)))
+    nlv = rng.integers(3, TR + 1, n).astype(np.int32)
+    alv = rng.integers(1, W + 1, n).astype(np.int32)
+    return (*(torch.from_numpy(a.astype(np.int16)).to(dev)
+              for a in (word, hint)),
+            *(torch.from_numpy(a).to(dev) for a in (nlv, alv)), 300)
+
+
+@pytest.mark.parametrize("W,n,nl_pad,planes", [
+    (128, 1, 900, "scan"), (128, 33, 700, "scan"), (32, 513, 400, "scan"),
+    (128, 33, 700, "random"), (32, 513, 400, "random")])
+def test_run_walk_kernel_matches_plain(cuda_card, W, n, nl_pad, planes):
+    """K3 against run_walk_plain: the batch's round budget and round
+    counts that are not multiples of 16 or 32, small enough that walks
+    hit the cap; on K2's planes the walks end by i < 2 (and j = -1), on
+    random planes also by j < 0 with i >= 2."""
+    make = _walk_case if planes == "scan" else _random_planes
+    tb, hint, nlv, alv, budget = make(cuda_card, W, n, nl_pad, n + W)
+    ends = set()
+    for rounds in (budget, 1, 7, 33, 45):
+        got = sk.run_walk(tb, hint, nlv, alv, rounds)
+        want = sk.run_walk_plain(tb, hint, nlv, alv, rounds)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        fi, fj = (t.cpu() for t in want[2:])
+        ends |= {"cap" if i >= 2 and j >= 0 else "j<0" if i >= 2 else "i<2"
+                 for i, j in zip(fi.tolist(), fj.tolist())}
+    assert ends == ({"cap", "i<2"} if planes == "scan"
+                    else {"cap", "i<2", "j<0"})
