@@ -18,8 +18,8 @@ Phases (any failure exits non-zero and prints no result):
   2. build: nvcc for sm_90a, the -Xptxas -v register and spill lines,
      and per K1-K5 and K7 instantiation its registers, spill bytes and
      count of DPX instructions, named-barrier waits and local
-     loads/stores in the SASS (cuobjdump; a spill in K4's B4 forms or
-     in K5 fails the run); the SASS that Hopper's packed int16
+     loads/stores in the SASS (cuobjdump; a spill in K4's B4 or B4'
+     forms or in K5 fails the run); the SASS that Hopper's packed int16
      intrinsics compile to
   3. kernels: K7 track_prep (the device prep of a raw batch) at K1's
      four batches and at the engine's W=128 / nl 4096 / 512 and W=32 /
@@ -35,7 +35,9 @@ Phases (any failure exits non-zero and prints no result):
      and at go 11 but W=128 at go 0 only, and W=128 at go 11 at the
      engine's 512-problem batch, with K2's time at the same shape
      beside it) and its int32 form
-     striped_cigar_dp32 (scores past 32767), K5 cell_walk, K6
+     striped_cigar_dp32 (B4', the library's gs32b DP: W=512 / nl 2048
+     at go 11 and at go 0, each with scores past 32767, W=128 / nl 1024
+     and W=1024 / nl 4096, each with nl >= 3 al), K5 cell_walk, K6
      sketch_orf — exact equality with the
      plain versions on the card and with the host engine (native.dp16 /
      dp32 / sketch_nt4); time, cells, GCUPS, bound
@@ -141,9 +143,10 @@ def sass_functions(path: str) -> dict:
     return ops
 
 
-# kernels that must not spill: K4's B4 forms and K5 (their -Xptxas -v
-# spill bytes and their SASS local loads and stores are checked)
-NO_SPILL = ("striped_cigar_kernel", "cell_walk_kernel")
+# kernels that must not spill: K4's B4 and B4' forms and K5 (their
+# -Xptxas -v spill bytes and their SASS local loads and stores are
+# checked)
+NO_SPILL = ("striped_cigar_kernel", "striped32_kernel", "cell_walk_kernel")
 
 
 def ptxas_spills(log: str) -> dict:
@@ -716,11 +719,12 @@ def phase_striped(W, nl_pad, n, seed, go, k2_ms):
                  library_ms=None)]
 
 
-def phase_dp32(W, nl_pad, n, seed):
-    """B4' (gs32b) on a matrix with 127 on the diagonal: homologs of
-    al > 258 score past the int16 range (an int8 matrix cannot get
-    there at al <= 128, hence W = 512).  Its launches are counted here:
-    the mapper never runs it."""
+def phase_dp32(W, nl_pad, n, seed, go=None):
+    """B4' (gs32b) on a matrix with 127 on the diagonal and al in [W/2,
+    W], nl >= 3 al: at W >= 512 homologs (every 4th one exact) score past
+    the int16 range, which an int8 matrix cannot reach at al <= 128.
+    go=0 takes its go == 0 instantiation.  Its launches are counted
+    here: the mapper never runs it."""
     import numpy as np
     import torch
 
@@ -729,10 +733,13 @@ def phase_dp32(W, nl_pad, n, seed):
     from miniprot_tpu_torch.kernels.nasw_ext import prep_problem
     from miniprot_tpu_torch.native import DPF_CIGAR
     opt, env, scal, T, kw = scoring()
+    go = opt.go if go is None else go
+    scal = (go,) + scal[1:]
     hot = opt.mat.copy()
     hot[np.arange(20), np.arange(20)] = 127
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
+    tag = f"W={W},nl={nl_pad},go={go}"
     kernels.reset_launch_counts()
     batch = st.Dp32Batch(W, nl_pad, hot, scal, device=dev, capacity=n)
     cases = []
@@ -755,30 +762,31 @@ def phase_dp32(W, nl_pad, n, seed):
     valid = st.valid_cells(nlv, alv, tb.shape[1], W, st.VL32)
     if not (torch.equal(torch.where(valid, tb, 0), tb_p)
             and torch.equal(score, score_p)):
-        fail(f"striped_cigar_dp32 W={W}: kernel != plain version")
+        fail(f"striped_cigar_dp32 {tag}: kernel != plain version")
     res = batch.collect((tb, score))
     for (nsq, asq), r in zip(cases, res):
         rsc, rcig = native.dp32(nsq, asq, flag=DPF_CIGAR, mat=hot, nt4=T.nt4,
                                 aa20=T.aa20, codon=T.codon, sp=env.sp,
-                                sp_null_bonus=opt.sp_null_bonus, go=opt.go,
+                                sp_null_bonus=opt.sp_null_bonus, go=go,
                                 ge=opt.ge, io=opt.io, fs=opt.fs)
         if r[0] != rsc or not np.array_equal(r[1], rcig):
-            fail(f"striped_cigar_dp32 W={W}: result != host engine dp32")
+            fail(f"striped_cigar_dp32 {tag}: result != host engine dp32")
     over = sum(r[0] > 32767 for r in res)
-    if over < n // 8:
-        fail(f"striped_cigar_dp32: only {over} scores past 32767")
+    if W >= 512 and over < n // 8:
+        fail(f"striped_cigar_dp32 {tag}: only {over} scores past 32767")
     launches = kernels.launch_counts()["striped_cigar_dp32"]
     ms = time_ms(lambda: st.striped_cigar_dp32(*args), reps=3)
     rows, cells = _striped_cells(batch, st.VL32)
     nbytes = 2 * cells + rows * (1 + 8) + n * (W + 8) + 22 * 22
     bms, by = bound(nbytes, cells * K2_OPS_PER_CELL, INT32_OPS_PER_S)
     top = max(r[0] for r in res)
-    print(f"[K4 striped_cigar_dp32] W={W} nl={nl_pad} n={n}: exact vs plain "
+    print(f"[K4 striped_cigar_dp32] {tag} n={n}: exact vs plain "
           f"and host dp32, {over} scores > 32767 (max {top}); {ms:.3f} ms, "
           f"{cells} cells, {cells / ms / 1e6:.2f} GCUPS; plain "
-          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}); {launches} "
+          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by}); "
+          f"{st.DP32_WARPS[st.dp32_class(W)]} warps per problem; {launches} "
           f"launches in this phase", flush=True)
-    return dict(name=f"striped_cigar_dp32[W={W},nl={nl_pad}] (library DP, "
+    return dict(name=f"striped_cigar_dp32[{tag}] (library DP, "
                 "off the mapper: launches counted in its own phase)",
                 route="cuda", source=SRC + "striped_cigar.cu",
                 replaces="miniprot_tpu/kernels/nasw_cigar_pallas.py:74",
@@ -1125,7 +1133,12 @@ def main() -> None:
     entries += phase_striped(32, 2048, 512, 19, 0, k2_ms)
     # the engine's striped batch at W=128 / nl 4096 (device.cig_capacity)
     entries += phase_striped(128, 4096, 512, 17, 11, k2_ms)
+    # B4': the shape every PR has timed, its go == 0 form, and the
+    # narrowest and widest geometries
     entries.append(phase_dp32(512, 2048, 128, 10))
+    entries.append(phase_dp32(512, 2048, 128, 20, go=0))
+    entries.append(phase_dp32(128, 1024, 128, 21))
+    entries.append(phase_dp32(1024, 4096, 128, 22))
     entries.append(phase_sketch(12, args.genome_mb * 1_000_000 // N_CTG))
     runs = phase_e2e(args.genome_mb, args.proteins, args.threads)
     for e in entries:

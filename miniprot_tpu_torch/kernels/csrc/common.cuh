@@ -233,11 +233,52 @@ __device__ __forceinline__ Seg seg_combine(Seg l, Seg r) {
 //   3. row_i: Iused and t4 = sat(hp1 - go) and, with the full scan,
 //      bit 9 and the final H; pass1: the state nibble and bit 4.
 // (nasw_cigar_scan.py's docstring has the equivalence with the striped
-// schedule.)  Saturating int16 is a clip on int32 registers.
+// schedule.)  The value policy is a template parameter (Pol): I16, the
+// saturating int16 of K2 and K4's B4 (a clip on int32 registers), the
+// default; W32, the wrapping int32 of K4's B4' (gs32b).
 // ---------------------------------------------------------------------------
 
 #define NEG16 (-32768)
 #define NEGI (-(1 << 29))
+#define NEG32 (-0x40000000)
+
+// Saturating int16: the scan value of position q is u = sat(base - go) +
+// q*ge, I = max(scan - q*ge, NEG16), and NEGI (below every u) is the
+// scan's "no value".
+struct I16 {
+  static constexpr bool WRAP = false;
+  static constexpr int VL = 8, NEG = NEG16, SENT = NEGI, QOFF = 0;
+  // the full scan's value left of position 0
+  __device__ static __forceinline__ int fseed(int) { return NEGI; }
+  __device__ static __forceinline__ int add(int a, int b) { return sat16(a + b); }
+  __device__ static __forceinline__ int sub(int a, int b) { return sat16(a - b); }
+};
+
+// Wrapping int32 (gs32b: paddd / psubd, so adds go through unsigned).
+// Every H is at least its pass-1 I floor NEG32 - (j+1)*ge >= NEG32 -
+// 256*ge (j < slen <= 256), so D, and with it base, is at least NEG32 -
+// 256*ge - go - max(ge, fs), and v = base - go does not wrap; at a pad
+// position (q >= al) match = H(q-1) + NEG32 wraps to near INT_MAX when
+// H(q-1) < NEG32.  So the scan value carries its position as (q - QOFF)
+// * ge with QOFF = 1024, the widest class: u = v + (q - QOFF)*ge lies in
+// [NEG32 - 1280*ge - 2*go - max(ge, fs), INT_MAX - ge], I = scan - (q -
+// QOFF)*ge <= v, and SENT = -(3 << 29) lies below every u (2^29 to
+// spare) while SENT + 1024*ge does not wrap.  The I floors are folded
+// in: I(q) = NEG32 - ge at a segment start, whose own u is raised to at
+// least (NEG32 - ge) + (q - QOFF)*ge, which carries NEG32 - (j+1)*ge
+// down the segment; the full scan starts from NEG32 - QOFF*ge, the NEG32
+// that the lazy-F fixup shifts into lane 0 (NEG32 - q*ge at q).
+struct W32 {
+  static constexpr bool WRAP = true;
+  static constexpr int VL = 4, NEG = NEG32, SENT = -(3 << 29), QOFF = 1024;
+  __device__ static __forceinline__ int fseed(int ge) { return NEG32 - QOFF * ge; }
+  __device__ static __forceinline__ int add(int a, int b) {
+    return (int)((unsigned)a + (unsigned)b);
+  }
+  __device__ static __forceinline__ int sub(int a, int b) {
+    return (int)((unsigned)a - (unsigned)b);
+  }
+};
 
 // first maximum of two (value, code) pairs: ties keep the left one
 __device__ __forceinline__ void first_max(int a, int ya, int b, int yb, int& m, int& y) {
@@ -288,7 +329,7 @@ struct RowTerms {
 };
 
 // A thread's DP state across rows.
-template <int P>
+template <int P, class Pol = I16>
 struct CigRow {
   // per position: H and D of rows i-1..i-3, the A/B/C intron carries
   int H1[P], H2[P], H3[P], D1[P], D2[P], D3[P], Ac[P], Bc[P], Cc[P];
@@ -300,10 +341,10 @@ struct CigRow {
   __device__ __forceinline__ CigRow(int tp, int fs) {
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      H1[p] = H2[p] = H3[p] = D1[p] = D2[p] = D3[p] = NEG16;
-      Ac[p] = Bc[p] = Cc[p] = NEG16;
+      H1[p] = H2[p] = H3[p] = D1[p] = D2[p] = D3[p] = Pol::NEG;
+      Ac[p] = Bc[p] = Cc[p] = Pol::NEG;
     }
-    LH1 = LH2 = LH3 = NEG16;
+    LH1 = LH2 = LH3 = Pol::NEG;
     if (tp == 0) {
       LH1 = -fs;
       LH2 = -fs;
@@ -311,41 +352,41 @@ struct CigRow {
     }
   }
 
-  // 1. the order-free candidates of a row whose scores are S (NEG16
+  // 1. the order-free candidates of a row whose scores are S (Pol::NEG
   // past al) and whose streams are rv, into t; each position's extension
   // bits (bt, bits 5-8) also go to ext(p, bt) as soon as they are known
   template <typename Ext>
   __device__ __forceinline__ void candidates(const int* S, const RowVals& rv, int q0,
                                              unsigned stm, int go, int ge, int gei,
                                              int fs, RowTerms<P>& t, Ext&& ext) {
-    int sv = NEGI, fm = NEGI;
-    t.svl = t.fml = t.svl2 = NEGI;
+    int sv = Pol::SENT, fm = Pol::SENT;
+    t.svl = t.fml = t.svl2 = Pol::SENT;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int q = q0 + p;
       const int h3m1 = p ? H3[p - 1] : LH3;
       const int h1m1 = p ? H1[p - 1] : LH1;
       const int h2m1 = p ? H2[p - 1] : LH2;
-      t.match[p] = sat16(h3m1 + S[p]);
-      const int ud = sat16(H3[p] - go);
+      t.match[p] = Pol::add(h3m1, S[p]);
+      const int ud = Pol::sub(H3[p], go);
       int bt = (D3[p] > ud) << 5;
-      t.Dn[p] = sat16(imax(ud, D3[p]) - gei);
-      const int ua = sat16(H1[p] - rv.dm1);
+      t.Dn[p] = Pol::sub(imax(ud, D3[p]), gei);
+      const int ua = Pol::sub(H1[p], rv.dm1);
       bt |= (Ac[p] > ua) << 6;
       Ac[p] = imax(ua, Ac[p]);
-      const int ub = sat16(h1m1 - rv.d0);
+      const int ub = Pol::sub(h1m1, rv.d0);
       bt |= (Bc[p] > ub) << 7;
       Bc[p] = imax(ub, Bc[p]);
-      const int uc = sat16(h1m1 - rv.dp1);
+      const int uc = Pol::sub(h1m1, rv.dp1);
       bt |= (Cc[p] > uc) << 8;
       Cc[p] = imax(uc, Cc[p]);
       // first maximum of the candidates after I in the priority order
       // (D, A, B, C, fs1..fs4 = codes 2..9), as a tree of depth 3
       int m01, y01, m23, y23, m45, y45, m67, y67, m, y;
-      first_max(t.Dn[p], 2, sat16(Ac[p] - rv.a0), 3, m01, y01);
-      first_max(sat16(Bc[p] - rv.am2), 4, sat16(Cc[p] - rv.am1), 5, m23, y23);
-      first_max(sat16(H1[p] - fs), 6, sat16(H2[p] - fs), 7, m45, y45);
-      first_max(sat16(h1m1 - fs), 8, sat16(h2m1 - fs), 9, m67, y67);
+      first_max(t.Dn[p], 2, Pol::sub(Ac[p], rv.a0), 3, m01, y01);
+      first_max(Pol::sub(Bc[p], rv.am2), 4, Pol::sub(Cc[p], rv.am1), 5, m23, y23);
+      first_max(Pol::sub(H1[p], fs), 6, Pol::sub(H2[p], fs), 7, m45, y45);
+      first_max(Pol::sub(h1m1, fs), 8, Pol::sub(h2m1, fs), 9, m67, y67);
       first_max(m01, y01, m23, y23, m01, y01);
       first_max(m45, y45, m67, y67, m45, y45);
       first_max(m01, y01, m45, y45, m, y);
@@ -353,7 +394,13 @@ struct CigRow {
       t.wd[p] = bt | y;
       ext(p, bt);
       t.base[p] = imax(t.match[p], m);
-      t.u[p] = sat16(t.base[p] - go) + q * ge;
+      if constexpr (Pol::WRAP) {
+        // a segment start's value carries the segment's I floor (W32)
+        const int v = Pol::sub(t.base[p], go);
+        t.u[p] = ((stm >> p) & 1 ? imax(v, NEG32 - ge) : v) + (q - Pol::QOFF) * ge;
+      } else {
+        t.u[p] = sat16(t.base[p] - go) + q * ge;
+      }
       if (p == P - 2) t.svl2 = sv;
       if (p == P - 1) {  // before the last position
         t.svl = sv;
@@ -383,7 +430,7 @@ struct CigRow {
   // (thread 0: the [-1] column, NEG from row 3 on)
   __device__ __forceinline__ void advance_left(int tp, int hl) {
     if (tp == 0) {
-      LH1 = LH2 = LH3 = NEG16;
+      LH1 = LH2 = LH3 = Pol::NEG;
     } else {
       LH3 = LH2;
       LH2 = LH1;
@@ -413,14 +460,15 @@ struct WarpCarry {
 };
 
 // Fold the CigX of warps 0..wp-1 (sx: the problem's row of them).  FULL:
-// the final H of the left warp's last position qL is max(base, Istar);
-// otherwise (K4 at go == 0) it is hp1 raised, when qL starts a segment,
-// by the one lazy-F step the left warp left in x0.
-template <int P, int NWP, bool FULL>
+// the final H of the left warp's last position qL is max(base, Istar)
+// (W32: max(hp1, Istar)); otherwise (K4 at go == 0) it is hp1 raised,
+// when qL starts a segment, by the one lazy-F step the left warp left in
+// x0.
+template <int P, int NWP, bool FULL, class Pol = I16>
 __device__ __forceinline__ WarpCarry warp_carry(const CigX* sx, int wp,
                                                 const SegMasks<P>& m, int go, int ge) {
-  WarpCarry c{NEGI, NEGI, NEGI, 0, NEG16, 0, -1};
-  Seg cs{0, NEGI};
+  WarpCarry c{Pol::SENT, Pol::fseed(ge), Pol::SENT, 0, Pol::NEG, 0, -1};
+  Seg cs{0, Pol::SENT};
 #pragma unroll
   for (int w = 0; w < NWP - 1; ++w) {
     if (w < wp) {
@@ -430,13 +478,24 @@ __device__ __forceinline__ WarpCarry warp_carry(const CigX* sx, int wp,
         // and the carry of the warps before it
         const int qL = (w + 1) * 32 * P - 1;
         const int sxv = (m.wf_pre >> w) & 1 ? x.vl : imax(cs.v, x.vl);
-        c.il = imax(((m.wf_last >> w) & 1 ? NEGI : sxv) - qL * ge, NEG16);
-        const int hp1 = imax(x.bl, c.il);
-        c.tl = sat16(hp1 - go);
-        if constexpr (FULL)
-          c.hedge = imax(x.bl, imax(imax(c.full, x.fl) - qL * ge, NEG16));
-        else
-          c.hedge = imax(hp1, (m.wf_last >> w) & 1 ? x.x0 : NEG16);
+        if constexpr (Pol::WRAP) {
+          const int qg = (qL - Pol::QOFF) * ge;
+          c.il = (m.wf_last >> w) & 1 ? NEG32 - ge : sxv - qg;
+          const int hp1 = imax(x.bl, c.il);
+          c.tl = Pol::sub(hp1, go);
+          if constexpr (FULL)
+            c.hedge = imax(hp1, imax(c.full, x.fl) - qg);
+          else
+            c.hedge = imax(hp1, (m.wf_last >> w) & 1 ? x.x0 : Pol::SENT);
+        } else {
+          c.il = imax(((m.wf_last >> w) & 1 ? NEGI : sxv) - qL * ge, NEG16);
+          const int hp1 = imax(x.bl, c.il);
+          c.tl = sat16(hp1 - go);
+          if constexpr (FULL)
+            c.hedge = imax(x.bl, imax(imax(c.full, x.fl) - qL * ge, NEG16));
+          else
+            c.hedge = imax(hp1, (m.wf_last >> w) & 1 ? x.x0 : NEG16);
+        }
         c.x0 = x.x0;
       }
       cs = seg_combine(cs, Seg{(int)((m.wf_in >> w) & 1), x.sv});
@@ -448,10 +507,10 @@ __device__ __forceinline__ WarpCarry warp_carry(const CigX* sx, int wp,
   return c;
 }
 
-// 3. Iused, hp1 and t4 = sat(hp1 - go) per position from the carries
+// 3. Iused, hp1 and t4 = sub(hp1, go) per position from the carries
 // into q0 (segc: segmented, fullc: plain) and, with FULL, Istar's bit 9
 // and the final H.
-template <int P, bool FULL>
+template <int P, bool FULL, class Pol = I16>
 __device__ __forceinline__ void row_i(const RowTerms<P>& t, unsigned stm, int q0, int segc,
                                       int fullc, int go, int ge, int* Iused, int* hp1,
                                       int* t4, int* Hfin, int* b9) {
@@ -459,26 +518,46 @@ __device__ __forceinline__ void row_i(const RowTerms<P>& t, unsigned stm, int q0
   for (int p = 0; p < P; ++p) {
     const int q = q0 + p;
     const int st = (stm >> p) & 1;
-    Iused[p] = imax((st ? NEGI : segc) - q * ge, NEG16);
-    segc = st ? t.u[p] : imax(segc, t.u[p]);
-    hp1[p] = imax(t.base[p], Iused[p]);
-    if constexpr (FULL) {
-      const int Istar = imax(fullc - q * ge, NEG16);
-      fullc = imax(fullc, t.u[p]);
-      Hfin[p] = imax(t.base[p], Istar);
-      b9[p] = Istar > hp1[p];
+    if constexpr (Pol::WRAP) {
+      // W32: Istar may lie below a segment start's floor NEG32 - ge, so H
+      // is max(hp1, Istar)
+      const int qg = (q - Pol::QOFF) * ge;
+      Iused[p] = st ? NEG32 - ge : segc - qg;
+      segc = st ? t.u[p] : imax(segc, t.u[p]);
+      hp1[p] = imax(t.base[p], Iused[p]);
+      if constexpr (FULL) {
+        const int Istar = fullc - qg;
+        fullc = imax(fullc, t.u[p]);
+        Hfin[p] = imax(hp1[p], Istar);
+        b9[p] = Istar > hp1[p];
+      }
+      t4[p] = Pol::sub(hp1[p], go);
+    } else {
+      Iused[p] = imax((st ? NEGI : segc) - q * ge, NEG16);
+      segc = st ? t.u[p] : imax(segc, t.u[p]);
+      hp1[p] = imax(t.base[p], Iused[p]);
+      if constexpr (FULL) {
+        const int Istar = imax(fullc - q * ge, NEG16);
+        fullc = imax(fullc, t.u[p]);
+        Hfin[p] = imax(t.base[p], Istar);
+        b9[p] = Istar > hp1[p];
+      }
+      t4[p] = sat16(hp1[p] - go);
     }
-    t4[p] = sat16(hp1[p] - go);
   }
 }
 
 // Position p's pass-1 state nibble y (the first maximum of (match, I,
 // D, A, B, C, fs1..fs4) under the strict-> chain, I = Iused) and bit 4
-// (Iused(q-1) > t4(q-1): I extended, never at a segment start; ip, tq =
-// Iused, t4 of q - 1).
-template <int P>
+// (Iused(q-1) > t4(q-1): I extended; ip, tq = Iused, t4 of q - 1).  At a
+// segment start bit 4 compares the stripe loop's initial NEG with NEG -
+// go: never set in saturating int16, set where go > 0 in W32.
+template <int P, class Pol = I16>
 __device__ __forceinline__ void pass1(const RowTerms<P>& t, int p, int Iused, int ip, int tq,
-                                      int st, int& y, int& b4) {
-  b4 = !st && ip > tq;
+                                      int st, int& y, int& b4, int go = 0) {
+  if constexpr (Pol::WRAP)
+    b4 = st ? go > 0 : ip > tq;
+  else
+    b4 = !st && ip > tq;
   y = t.cm[p] > imax(t.match[p], Iused) ? (t.wd[p] & 15) : (Iused > t.match[p] ? 1 : 0);
 }

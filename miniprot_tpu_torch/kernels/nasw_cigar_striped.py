@@ -24,12 +24,12 @@ The plain versions compute the same words in position order: the first
 pass of a row (the stripe loop) is the segmented I scan of
 nasw_cigar_scan.py (a lane's stripes are one run of positions), and the
 lazy-F fixup is evaluated on its whole (pass, stripe, lane) step grid
-at once, up to each problem's own break (_striped_plain).  K4's B4 form
-computes the row as the scan kernel does (the fixup is the full-row I
-scan at go >= 1 and one step at each segment start at go == 0;
+at once, up to each problem's own break (_striped_plain).  K4 computes
+the row as the scan kernel does (the fixup is the full-row I scan at go
+>= 1 and one step at each segment start at go == 0;
 tests/test_torch_striped.py holds both identities against
-_striped_plain) and stores it in striped column order; its B4' form
-keeps the striped loop.
+_striped_plain, for the B4 and the B4' form) and stores it in striped
+column order.
 """
 
 from __future__ import annotations
@@ -53,6 +53,15 @@ VL32 = 4                 # lanes per stripe, int32
 # and at 512 problems, and the maps launch fewer; PERF.md)
 STRIPED_WIDTHS = SCAN_WIDTHS
 STRIPED_WARPS = {32: 1, 128: 2, 512: 4}
+# K4's B4' form takes any W that is a multiple of 4 up to 1024 on the
+# geometry of the class width above it (mp_striped_cigar32's switch:
+# 1 warp at 1 position per thread, 2 at 2, 4 at 4, 4 at 8)
+DP32_WARPS = {32: 1, 128: 2, 512: 4, 1024: 4}
+
+
+def dp32_class(W: int) -> int:
+    """The class width whose geometry B4' runs at row width W."""
+    return min(c for c in DP32_WARPS if c >= W)
 
 # per-state genome rows / query columns consumed (bt_step in mpnative.c)
 _BT_DI = (3, 0, 3, 1, 1, 1, 1, 2, 1, 2, 0, 0, 0, 0, 0, 0)
@@ -89,14 +98,17 @@ def striped_cigar_dp(nas, D, A, nlv, alv, aas, mat, opts, rows):
 def striped_cigar_dp32(nas, D, A, nlv, alv, aas, mat, opts, rows):
     """The same with 4 plain int32 lanes per stripe (B4', gs32b): no
     saturation, NEG32 floor, at most 4 lazy-F passes.  Scores may pass
-    the int16 range.  Any W that is a multiple of 4."""
+    the int16 range.  Any W that is a multiple of 4 up to 1024 (W is the
+    row stride of aas and tb; CUDA tensors launch K4's striped32_kernel
+    on DP32_WARPS[the class width above W] warps per problem); a wider W
+    raises on either device."""
+    W = aas.shape[1]
+    if W % VL32 or not 0 < W <= max(DP32_WARPS):
+        raise ValueError(f"striped_cigar_dp32: W={W} is not a multiple of "
+                         f"{VL32} in [4, {max(DP32_WARPS)}]")
     if not nas.is_cuda:
         return _striped_plain(VL32, nas, D, A, nlv, alv, aas, mat, opts,
                               rows)
-    W = aas.shape[1]
-    if W % VL32:
-        raise ValueError(f"striped_cigar_dp32: W={W} is not a multiple of "
-                         f"{VL32}")
     return _launch_striped("mp_striped_cigar32", "striped_cigar_dp32", nas,
                            D, A, nlv, alv, aas, mat, opts, rows)
 
@@ -141,7 +153,8 @@ def striped_cigar_dp32_plain(nas, D, A, nlv, alv, aas, mat, opts, rows):
     return _striped_plain(VL32, nas, D, A, nlv, alv, aas, mat, opts, rows)
 
 
-def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
+def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows,
+                   passes=None):
     """One genome row per step over all problems, in position order.
 
     Pass 1 (the stripe loop): lane k's stripes j = 0..slen-1 are the
@@ -155,9 +168,11 @@ def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
     starting I decayed by (P*slen + j)*ge, or the NEG that entered lane
     0 at pass P-k.  H before step (P, j) is the pass-1 H raised by the
     earlier passes' I at that cell.  The steps run are those up to and
-    including the first whose break test holds (all lanes), or all VL
-    passes."""
+    including the first whose break test holds (all lanes), or all
+    ``passes`` passes (the reference's VL; a test raises it to show the
+    cap changes no word)."""
     sat = vl == VL
+    NP = passes or vl
     NEG = NEG16 if sat else NEG32
     dev = nas.device
     n, R = nas.shape
@@ -192,7 +207,7 @@ def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
     lane_end = torch.arange(vl, device=dev).view(1, vl) * sl + sl - 1
     # lazy-F step grid (pass P, stripe j, lane k)
     sl4 = sl.view(n, 1, 1, 1).to(i64)
-    Pp = torch.arange(vl, device=dev).view(1, vl, 1, 1)
+    Pp = torch.arange(NP, device=dev).view(1, NP, 1, 1)
     jj = torch.arange(SC, device=dev).view(1, 1, SC, 1)
     kk = torch.arange(vl, device=dev).view(1, 1, 1, vl)
     origin = kk - 1 - Pp                      # lane whose start I arrives
@@ -200,7 +215,7 @@ def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
     neg_in = (torch.full_like(decay, NEG) if sat
               else NEG - (kk * sl4 + jj) * ge)
     j_ok = (jj < sl4).view(n, 1, SC, 1)
-    step = torch.arange(vl * SC, device=dev).view(1, vl * SC)
+    step = torch.arange(NP * SC, device=dev).view(1, NP * SC)
     tb = torch.zeros((n, rows, W), dtype=torch.int16, device=dev)
     score = torch.full((n,), NEG, dtype=i32, device=dev)
 
@@ -249,10 +264,10 @@ def _striped_plain(vl, nas, D, A, nlv, alv, aas, mat, opts, rows):
              torch.cummax(Iv, dim=1).values[:, :-1]], dim=1))
         hn = torch.maximum(Hcur, Iv)
         brk = ((sub(Iv, ge) <= sub(hn, goe)).all(dim=3, keepdim=True)
-               & j_ok).view(n, vl * SC)
+               & j_ok).view(n, NP * SC)
         stop = torch.where(brk.any(dim=1), brk.to(i32).argmax(dim=1),
-                           vl * SC)
-        run = (step <= stop.view(n, 1)).view(n, vl, SC, 1) & j_ok
+                           NP * SC)
+        run = (step <= stop.view(n, 1)).view(n, NP, SC, 1) & j_ok
         b9 = ((Iv > Hcur) & run).any(dim=1).view(n, W)
         Hs = torch.maximum(Hc[:, 0], torch.where(run, Iv, BIG).amax(dim=1))
         H = hp1x.scatter(1, col_pos, Hs.view(n, W).to(i32))[:, :W]

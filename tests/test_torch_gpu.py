@@ -203,6 +203,65 @@ def test_striped_and_walk_kernels_match_plain(cuda_card, W, nl_pad, n, go,
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("W,n,go", [(W, n, go)
+                                     for W in (32, 128, 300, 512, 1000, 1024)
+                                     for n in (1, 9, 129) for go in (0, 11)])
+def test_dp32_kernel_matches_plain_and_host(cuda_card, W, n, go):
+    """K4's B4' form (striped32_kernel) at every class width and at W =
+    300 (rows only 8-byte aligned) and 1000, on 1, 9 and 129 problems:
+    al = 1, al = W and al not a multiple of 4 (pad positions), nl = 3
+    beside full windows.  Exact against the plain version on every valid
+    word and score, and through Dp32Batch.collect against the host
+    engine's dp32 (score and CIGAR) on a few problems."""
+    from miniprot_tpu_torch import native
+    from miniprot_tpu_torch.native import DPF_CIGAR
+    T, mat, sp = _setup()
+    rng = np.random.default_rng(3 * W + n + go)
+    opt = (go,) + OPT[1:]
+    nl_pad = 320
+    batch = st.Dp32Batch(W, nl_pad, mat, opt, device=cuda_card, capacity=n)
+    cases = []
+    for k in range(n):
+        al = (1, W, W - 1)[k] if k < 3 else int(rng.integers(1, W + 1))
+        nl = (3, nl_pad)[k % 2] if k < 4 else int(rng.integers(3, nl_pad + 1))
+        ns = rng.choice(list(b"ACGTN"), nl).astype(np.uint8)
+        aa = rng.choice(list(b"ARNDCQEGHILKMFPSTWYVX*"), al).astype(np.uint8)
+        nas, aas, d, a = ne.prep_problem(ns, aa, sp=sp, sp_null_bonus=-7,
+                                         io=29, ext_left=False)
+        batch.add(nas, aas, d, a)
+        cases.append((ns, aa))
+    nlv, alv = batch._lens()
+    args = (*batch._tracks(), nlv, alv, ne._upload(batch.aas[:n], cuda_card),
+            ne._upload(batch.mat, cuda_card), (batch.go, batch.ge, batch.fs),
+            batch._rows())
+    tb, score = st.striped_cigar_dp32(*args)
+    tb_p, score_p = st.striped_cigar_dp32_plain(*args)
+    torch.cuda.synchronize()
+    valid = st.valid_cells(nlv, alv, tb.shape[1], W, st.VL32)
+    assert torch.equal(torch.where(valid, tb, 0), tb_p)
+    assert torch.equal(score, score_p)
+    res = batch.collect((tb, score))
+    for (ns, aa), (sc, cig) in list(zip(cases, res))[:4]:
+        rsc, rcig = native.dp32(ns, aa, flag=DPF_CIGAR, mat=mat, nt4=T.nt4,
+                                aa20=T.aa20, codon=T.codon, sp=sp,
+                                sp_null_bonus=-7, go=go, ge=OPT[1], io=29,
+                                fs=OPT[2])
+        assert sc == rsc and np.array_equal(cig, rcig)
+
+
+def test_dp32_wider_than_1024_raises_on_card(cuda_card):
+    """W = 1028 has no B4' geometry: the wrapper raises, no launch."""
+    T, mat, sp = _setup()
+    batch = st.Dp32Batch(1028, 64, mat, OPT, device=cuda_card, capacity=1)
+    ns = np.frombuffer(b"ACGT" * 12, np.uint8)
+    nas, aas, d, a = ne.prep_problem(ns, np.frombuffer(b"ARND", np.uint8),
+                                     sp=sp, sp_null_bonus=-7, io=29,
+                                     ext_left=False)
+    batch.add(nas, aas, d, a)
+    with pytest.raises(ValueError):
+        batch.launch()
+
+
 def test_sketch_kernel_matches_plain(cuda_card):
     rng = np.random.default_rng(17)
     for n in (5, 3000, 200_000):

@@ -58,3 +58,19 @@ def test_striped_switch_geometry_is_striped_warps():
     cases = {int(w): int(nwp) for w, nwp in
              re.findall(r"case (\d+): MP_B4\(\d+, (\d+)\)", body)}
     assert cases == nasw_cigar_striped.STRIPED_WARPS
+
+
+def test_dp32_switch_geometry_is_dp32_warps():
+    """mp_striped_cigar32 runs B4' on the geometry of the class width
+    above W; DP32_WARPS names each class's warps per problem, and each
+    instantiation's positions per thread times its threads span the
+    class."""
+    _, body = _entry("mp_striped_cigar32")
+    cases = {int(w): (int(p), int(nwp)) for w, p, nwp in
+             re.findall(r"case (\d+): MP_B4P\((\d+), (\d+)\)", body)}
+    assert {w: nwp for w, (_, nwp) in cases.items()} == \
+        nasw_cigar_striped.DP32_WARPS
+    assert all(p * 32 * nwp == w for w, (p, nwp) in cases.items())
+    assert [nasw_cigar_striped.dp32_class(W) for W in (4, 32, 36, 300, 512,
+                                                       1000, 1024)] == \
+        [32, 32, 128, 512, 512, 1024, 1024]

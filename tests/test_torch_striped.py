@@ -269,38 +269,61 @@ def test_prep_tracks_feed_the_same_words():
 # ---------------------------------------------------------------------------
 # The identities K4 rests on: the striped words of a genome row are the
 # position-order words of the scan DP (two prefix scans per row), and at
-# go == 0 the lazy-F fixup is one step at each stripe-segment start.
+# go == 0 the lazy-F fixup is one step at each stripe-segment start.  Its
+# B4' form (4 wrapping int32 lanes) rests on the same identities, with
+# the floors of points below.
 # ---------------------------------------------------------------------------
 
+# B4' scan values carry their position as (q - QOFF) * ge with QOFF the
+# widest class (1024), so they never pass INT_MAX (striped_cigar.cu)
+QOFF = 1024
+SENT32 = -(3 << 29)          # B4' scan "no value": below every scan value
 
-def _k4_rows(nas, D, A, nlv, alv, aas, mat, opts, rows):
-    """Plain position-order model of K4's B4 rows (not on the card
-    path): the order-free terms of each genome row, the segmented I scan
-    (segments of slen = ceil(al / 8) positions) for the state nibble and
+
+def _k4_rows(nas, D, A, nlv, alv, aas, mat, opts, rows, vl=st.VL):
+    """Plain position-order model of K4's rows (not on the card path):
+    the order-free terms of each genome row, the segmented I scan
+    (segments of slen = ceil(al / vl) positions) for the state nibble and
     bit 4; then at go >= 1 the full-row scan for bit 9 and the final H,
-    at go == 0 one lazy-F step at each segment start q = k * slen
-    (1 <= k < 8): H(q) = max(hp1(q), sat(hp1(q - 1) - ge)), bit 9 where
-    the second term is larger.  The words are stored in striped column
-    order, (q % slen) * 8 + q // slen.  Same arguments and results as
-    striped_cigar_dp_plain."""
+    at go == 0 one lazy-F step at each segment start q = k * slen: H(q) =
+    max(hp1(q), hp1(q - 1) - ge), bit 9 where the second term is larger.
+    The words are stored in striped column order, (q % slen) * vl + q //
+    slen.  Same arguments and results as striped_cigar_dp_plain (vl = 8,
+    saturating int16: B4) or striped_cigar_dp32_plain (vl = 4, wrapping
+    int32: B4').  B4' differs in its floors: I starts each stripe segment
+    at NEG32 - ge (folded into the segment's first scan value); the lazy-F
+    fixup shifts NEG32 into lane 0, which reaches position q as NEG32 -
+    q * ge (the full scan's seed, and at go == 0 position 0's one step);
+    bit 4 is set at a segment start where go > 0 (NEG32 > NEG32 - go)."""
     from miniprot_tpu_torch.kernels.nasw_cigar_scan import (
         _left, _row_terms, _sadd, _ssub, _state_nibble)
+    sat = vl == st.VL
     n, R = nas.shape
     W = aas.shape[1]
     go, ge, fs = (int(v) for v in opts)
     i32, i64 = torch.int32, torch.int64
-    NEG, NEGI = st.NEG16, -(1 << 29)
+    if sat:
+        NEG, NEGI, add, sub = st.NEG16, -(1 << 29), _sadd, _ssub
+    else:
+        NEG, NEGI, add, sub = st.NEG32, SENT32, torch.add, torch.sub
     q = torch.arange(W, dtype=i32).view(1, W)
-    sl = torch.clamp((alv + 7) // 8, min=1).view(n, 1)
+    qg = q.to(i64) * ge if sat else (q.to(i64) - QOFF) * ge
+    sl = torch.clamp((alv + vl - 1) // vl, min=1).view(n, 1)
     seg0 = q % sl == 0
-    fix = seg0 & (q > 0) & (q < 8 * sl)       # segment starts of lanes 1-7
-    segkey = (q // sl).to(i64) << 32
+    # segment starts of lanes 1..vl-1, and in B4' position 0 (NEG32 in)
+    fix = seg0 & ((q > 0) if sat else True) & (q < vl * sl)
+    segkey = (q // sl).to(i64) << 34
     prof = mat.to(i32)[:, aas.long().clamp(min=0)].permute(1, 0, 2)
     prof = torch.where(q.view(1, 1, W) >= alv.view(n, 1, 1), NEG, prof)
     D, A = D.to(i32), A.to(i32)
 
     def full(v):
         return torch.full((n, W), v, dtype=i32)
+
+    def to32(x):
+        # what the card computes in int32 must not have wrapped
+        assert int(x.min()) >= -(1 << 31) and int(x.max()) < (1 << 31)
+        return x.to(i32)
 
     H1, H2, H3, D1, D2, D3 = (full(NEG) for _ in range(6))
     Ac, Bc, Cc = full(NEG), full(NEG), full(NEG)
@@ -310,24 +333,39 @@ def _k4_rows(nas, D, A, nlv, alv, aas, mat, opts, rows):
     for i in range(2, min(int(nlv.max()), rows)):
         match, cands, bits, (Ac, Bc, Cc) = _row_terms(
             i, nas, D, A, prof[ar, nas[:, i].long()], (H1, H2, H3), D3,
-            (Ac, Bc, Cc), (go, ge, fs), NEG, _sadd, _ssub)
+            (Ac, Bc, Cc), (go, ge, fs), NEG, add, sub)
         base = match
         for x in cands:
             base = torch.maximum(base, x)
-        u = _ssub(base, go) + q * ge
-        SM = torch.cummax(segkey + (u.to(i64) + (1 << 31)), dim=1).values
-        SM = (SM - segkey - (1 << 31)).to(i32)
-        Iused = torch.clamp(torch.where(seg0, NEGI, _left(SM, NEGI))
-                            - q * ge, min=NEG)
-        hp1 = torch.maximum(base, Iused)
-        b4 = ~seg0 & (_left(Iused, NEGI) > _left(_ssub(hp1, go), 0))
-        if go >= 1:
-            Istar = torch.clamp(_left(torch.cummax(u, dim=1).values, NEGI)
-                                - q * ge, min=NEG)
-            b9 = Istar > hp1
-            H = torch.maximum(base, Istar)
+        v = sub(base, go)
+        if not sat:
+            v = torch.where(seg0, v.clamp(min=NEG - ge), v)
+        u = to32(v.to(i64) + qg)
+        assert int(u.min()) > NEGI
+        SM = torch.cummax(segkey + (u.to(i64) + (1 << 32)), dim=1).values
+        SM = SM - segkey - (1 << 32)
+        if sat:
+            Iused = torch.clamp(torch.where(seg0, NEGI, _left(SM, NEGI))
+                                - qg, min=NEG).to(i32)
         else:
-            Iin = torch.where(fix, _ssub(_left(hp1, NEG), ge), NEG)
+            Iused = to32(torch.where(seg0, NEG - ge, _left(SM, NEGI) - qg))
+        hp1 = torch.maximum(base, Iused)
+        b4 = torch.where(seg0, (not sat) and go > 0,
+                         _left(Iused, NEGI) > _left(sub(hp1, go), 0))
+        if go >= 1:
+            pre = _left(torch.cummax(u, dim=1).values, NEGI).to(i64)
+            if sat:
+                Istar = torch.clamp(pre - qg, min=NEG).to(i32)
+                H = torch.maximum(base, Istar)
+            else:
+                Istar = to32(torch.clamp(pre, min=NEG - QOFF * ge) - qg)
+                H = torch.maximum(hp1, Istar)
+            b9 = Istar > hp1
+        else:
+            Iin = sub(_left(hp1, NEG), ge)
+            if not sat:
+                Iin = torch.where(q == 0, NEG, Iin)
+            Iin = torch.where(fix, Iin, NEG if sat else NEGI)
             b9 = Iin > hp1
             H = torch.maximum(hp1, Iin)
         word = _state_nibble(match, Iused, cands) | (b4.to(i32) << 4)
@@ -337,20 +375,28 @@ def _k4_rows(nas, D, A, nlv, alv, aas, mat, opts, rows):
         score = torch.where(nlv - 1 == i, H[ar, (alv - 1).long()], score)
         H3, H2, H1 = H2, H1, H
         D3, D2, D1 = D2, D1, cands[0]
-    valid = st.valid_cells(nlv, alv, rows, W)
-    return torch.where(valid, _to_striped(words, alv), 0), score
+    valid = st.valid_cells(nlv, alv, rows, W, vl)
+    return torch.where(valid, _to_striped(words, alv, vl), 0), score
 
 
-def _to_striped(words, alv):
+def _to_striped(words, alv, vl=st.VL):
     """(n, rows, W) position-order words -> striped column order,
-    (q % slen) * 8 + q // slen; columns past 8 * slen are 0."""
+    (q % slen) * vl + q // slen; columns past vl * slen are 0."""
     n, rows, W = words.shape
-    sl = torch.clamp((alv.long() + 7) // 8, min=1).view(n, 1)
+    sl = torch.clamp((alv.long() + vl - 1) // vl, min=1).view(n, 1)
     q = torch.arange(W).view(1, W)
-    col = torch.where(q < 8 * sl, (q % sl) * 8 + q // sl, W)
+    col = torch.where(q < vl * sl, (q % sl) * vl + q // sl, W)
     out = torch.zeros((n, rows, W + 1), dtype=words.dtype)
     out.scatter_(2, col.view(n, 1, W).expand(n, rows, W), words)
     return out[:, :, :W].to(torch.int16)
+
+
+def _batch_args(batch):
+    n = batch.n
+    nlv, alv = batch._lens()
+    return (*batch._tracks(), nlv, alv, torch.from_numpy(batch.aas[:n]),
+            torch.from_numpy(batch.mat), (batch.go, batch.ge, batch.fs),
+            batch._rows())
 
 
 def _identity_batch(W, go, seed):
@@ -370,10 +416,32 @@ def _identity_batch(W, go, seed):
         ns, aa = _case(rng, nl, nl + 1, al, al + 1)
         cases.append((ns, aa))
     _fill(batch, cases, sp, False, T)
-    nlv, alv = batch._lens()
-    return (*batch._tracks(), nlv, alv, torch.from_numpy(batch.aas[:n]),
-            torch.from_numpy(batch.mat), (batch.go, batch.ge, batch.fs),
-            batch._rows())
+    return _batch_args(batch)
+
+
+def _identity_batch32(W, go, seed):
+    """A Dp32Batch of width W (any multiple of 4) on BLOSUM62 with 127 on
+    the diagonal: al = 1, W, W - 3 and 4 * (W // 8) + 5 (al not a
+    multiple of 4: pad positions in lane 3), nl from 2 rows up, and
+    exact-codon homologs (al up to 300) whose scores pass 32767 where W
+    allows; its B4' arguments on the CPU."""
+    T, mat, sp, _ = _setup(go)
+    hot = mat.reshape(22, 22).copy()
+    hot[np.arange(20), np.arange(20)] = 127
+    rng = np.random.default_rng(seed)
+    als = [1, W, W - 3, 4 * (W // 8) + 5, 9, 2]
+    hom = [min(W, 300), min(W, 290), min(W, 277)]
+    batch = st.Dp32Batch(W, 920, hot, (go,) + OPT[1:], device="cpu",
+                         capacity=len(als) + len(hom) + 3)
+    cases = []
+    for k, al in enumerate(als):
+        nl = (2, 3, 5)[k] if k < 3 else int(rng.integers(20, 160))
+        cases.append(_case(rng, nl, nl + 1, al, al + 1))
+    cases += [_dp32_cases(rng, T, 1, 0, al, al, 0)[0] for al in hom]
+    cases += [_case(rng, 40, 400, al, al + 1)
+              for al in rng.integers(1, W + 1, 3)]
+    _fill(batch, cases, sp, False, T)
+    return _batch_args(batch)
 
 
 @pytest.mark.parametrize("W,go", [(W, go) for W in (32, 128, 512)
@@ -394,6 +462,61 @@ def test_k4_row_model_matches_striped_plain(W, go):
         assert int(b9[:, :, 8:].sum()) == 0 and int(b9.sum()) > 0
     else:
         assert int(b9[:, :, 8:].sum()) > 0
+
+
+@pytest.mark.parametrize("W,go", [(W, go) for W in (32, 128, 300, 512, 1024)
+                                  for go in (0, 1, 11)])
+def test_b4p_row_model_matches_striped_plain(W, go):
+    """B4' (4 wrapping int32 lanes, what K4's striped32_kernel computes):
+    the position-order rows give striped_cigar_dp32_plain's words on
+    every valid cell, every bit, and its scores.  The batches hold pad
+    positions (al not a multiple of 4; at go == 0 their match term
+    wraps past INT_MIN, as paddd does), scores past 32767
+    where W >= 300, and bit 9 beyond stripe 0 at go >= 1."""
+    args = _identity_batch32(W, go, 600 + W + go)
+    tb, score = st.striped_cigar_dp32_plain(*args)
+    tb_m, score_m = _k4_rows(*args, vl=st.VL32)
+    assert torch.equal(score_m, score)
+    assert torch.equal(tb_m, tb)
+    alv = args[4]
+    assert bool((alv % st.VL32 != 0).any())
+    if W >= 300:
+        assert int(score.max()) > 32767
+    b9 = (tb.to(torch.int32) >> 9) & 1
+    if go == 0:
+        # one lazy-F step: bit 9 only in stripe 0 (columns 0..3)
+        assert int(b9[:, :, 4:].sum()) == 0 and int(b9.sum()) > 0
+    else:
+        assert int(b9[:, :, 4:].sum()) > 0
+
+
+@pytest.mark.parametrize("W,go", [(32, 0), (128, 1), (300, 11)])
+def test_b4p_lazy_f_pass_cap_changes_no_word(W, go):
+    """gs32b (and the host mx_dp32) stop the lazy-F fixup after 4 passes,
+    the JAX Dp32Batch after 8.  With 4 lanes every lane's start I has
+    reached every later lane by pass 3, so later passes carry only the
+    NEG32 shifted into lane 0, which lies below every H it meets: 8
+    passes give the same words and scores as 4."""
+    args = _identity_batch32(W, go, 700 + W + go)
+    tb4, sc4 = st._striped_plain(st.VL32, *args)
+    tb8, sc8 = st._striped_plain(st.VL32, *args, passes=8)
+    assert torch.equal(sc4, sc8) and torch.equal(tb4, tb8)
+
+
+@pytest.mark.parametrize("W", [1028, 1026, 0])
+def test_dp32_width_outside_its_classes_raises(W):
+    """B4' runs W a multiple of 4 up to 1024 (the widest class); any
+    other W raises on either device, the CPU's plain version included."""
+    n, R = 1, 8
+    args = (torch.zeros((n, R), dtype=torch.int8),
+            torch.zeros((n, R + 8), dtype=torch.int32),
+            torch.zeros((n, R + 8), dtype=torch.int32),
+            torch.full((n,), 5, dtype=torch.int32),
+            torch.ones(n, dtype=torch.int32),
+            torch.zeros((n, W), dtype=torch.int8),
+            torch.zeros((22, 22), dtype=torch.int8), (11, 1, 23), R)
+    with pytest.raises(ValueError):
+        st.striped_cigar_dp32(*args)
 
 
 @pytest.mark.parametrize("W,go", [(W, go) for W in (32, 128, 512)
