@@ -7,11 +7,14 @@ the card and on the host engine and requires byte-identical output.
 
     python3 chip_smoke.py [--genome-mb 200] [--proteins 2000] [--threads N]
     python3 chip_smoke.py --maps-only [--package DIR]
+    python3 chip_smoke.py --index-only [--package DIR]
 
 The second form runs only the e2e workload's three GPU maps, each with
-its host seconds inside the batches' launch(); --package DIR maps with
-the miniprot_tpu_torch of another checkout (a parent commit's unpacked
-tree), so two trees compare in one call.
+its host seconds inside the batches' launch(); the third only its
+--gpu-sketch index build, twice, with the build's stage split (fetch,
+sketch, bb_add, bb_finish) and K6's time on the first strand.
+--package DIR runs the miniprot_tpu_torch of another checkout (a parent
+commit's unpacked tree), so two trees compare in one call.
 
 Phases (any failure exits non-zero and prints no result):
   1. the card: nvidia-smi name and power limit; CUDA and sm_90 required
@@ -38,7 +41,9 @@ Phases (any failure exits non-zero and prints no result):
      striped_cigar_dp32 (B4', the library's gs32b DP: W=512 / nl 2048
      at go 11 and at go 0, each with scores past 32767, W=128 / nl 1024
      and W=1024 / nl 4096, each with nl >= 3 al), K5 cell_walk, K6
-     sketch_orf — exact equality with the
+     sketch_orf (the index's packed entries, in order, at strand lengths
+     around a tile and at -L past its halo; one launch under
+     torch.cuda.set_sync_debug_mode("error")) — exact equality with the
      plain versions on the card and with the host engine (native.dp16 /
      dp32 / sketch_nt4); time, cells, GCUPS, bound
   4. end to end: testgen's 200 Mb x 2000-protein workload mapped with
@@ -46,7 +51,8 @@ Phases (any failure exits non-zero and prints no result):
      fraction >= 0.90, every kernel of the path launched; then the GPU
      map on the striped route (MINIPROT_TPU_CIG_IMPL=striped) against
      the same host output, the -O 0 map on both engines, and the index
-     built with the device sketch against the host index.  Each run
+     built with the device sketch against the host index (with its
+     stage split).  Each run
      sets the launch counts to 0 just before it and reads them after;
      the kernels' device time per run (CUDA events around each launch),
      launches and problems per launch per (kind, width, nl bucket),
@@ -90,10 +96,15 @@ INT16_OPS_PER_S = 4 * INT32_OPS_PER_S
 K1_OPS_PER_CELL = 32
 K2_OPS_PER_CELL = 64
 # K4 (the striped form of the same NS_F_CIGAR loop) is held to K2's 64,
-# at the int16 rate for B4 and the int32 rate for B4'.  K6 per codon
-# slot: 3 base tests, codon index 4, table lookups 2, sense 1, run
-# bookkeeping 4, k-mer roll 3, hash 13, keep test 2 = 32.
-SKETCH_OPS_PER_SLOT = 32
+# at the int16 rate for B4 and the int32 rate for B4'.  K6 per window
+# (codon slot): 3 base tests, codon index 4, table lookups 2, sense 1,
+# run bookkeeping 4 = 14; and for a window whose run passes the length
+# tests (ending >= k, total >= -L), k-mer roll 3, hash 13, keep test 2
+# = 18 more.  No other window needs its hash: the index keeps nothing
+# of it.  (Counting the 18 for every window, 32 in all, is the most the
+# inputs could need.)
+SKETCH_OPS_PER_WINDOW = 14
+SKETCH_OPS_PER_RUN_WINDOW = 18
 # the device prep of a raw batch (K7; plain: _prep_seq_device +
 # _logpen_device) per genome row of a problem, counted from the
 # recurrences of the problem's own direction (the plain version computes
@@ -795,53 +806,231 @@ def phase_dp32(W, nl_pad, n, seed, go=None):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def sketch_bound(seq, kept, min_aa_len, kmer):
+    """K6's bound on a strand (a uint8 tensor) with ``kept`` entries:
+    (ms, what binds, windows whose run passes the length tests (from the
+    plain version's sense slots and run lengths), windows, the
+    operations' ms were every window hashed)."""
+    from miniprot_tpu_torch.kernels import sketch_gpu as sg
+    sense, _ = sg.sense_codes(seq)
+    run_windows = 0
+    for p in (0, 1, 2):
+        if sense[p::3].shape[0] >= kmer:
+            ending, total = sg._run_lengths(sense[p::3])
+            run_windows += int(((ending[kmer - 1:] >= kmer)
+                                & (total[kmer - 1:] >= min_aa_len)).sum())
+    n = len(seq)
+    windows = sg._frames(n, kmer)[1]
+    bms, by = bound(n + 8 * kept, SKETCH_OPS_PER_WINDOW * windows
+                    + SKETCH_OPS_PER_RUN_WINDOW * run_windows,
+                    INT32_OPS_PER_S)
+    most = 1e3 * (SKETCH_OPS_PER_WINDOW + SKETCH_OPS_PER_RUN_WINDOW) \
+        * windows / INT32_OPS_PER_S
+    return bms, by, run_windows, windows, most
+
+
 def phase_sketch(seed, strand_bp):
-    """K6 on strands of 5 and 1,000,003 bp and of ``strand_bp``, the
-    e2e workload's contig length (the index build sketches each contig
-    and its reverse complement whole); timed at strand_bp."""
+    """K6 on random strands of 5 bp, of one tile (3 TILE_SLOTS bases)
+    +- 1, of 1,000,003 bp and of ``strand_bp``, the e2e workload's
+    contig length (the index build sketches each contig and its reverse
+    complement whole), and on a 2 Mb strand of long ORFs at -L 30 and
+    -L 2000 (runs past the staged halo and past a tile): the entries in
+    order against the plain version on the card, and sorted against the
+    host sketch_nt4, through sketch_entries and sketch_nt4_device; one
+    launch under torch.cuda.set_sync_debug_mode("error"); timed at
+    strand_bp."""
     import numpy as np
     import torch
 
+    from miniprot_tpu_torch import kernels
     from miniprot_tpu_torch.kernels import sketch_gpu as sg
     from miniprot_tpu_torch.options import IdxOpt
     from miniprot_tpu_torch.sketch import sketch_nt4
+    from miniprot_tpu_torch.testgen import orf_strand
     o = IdxOpt()
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    for n in (5, 1_000_003, strand_bp):
-        seq = rng.choice(np.arange(5, dtype=np.uint8), n,
-                         p=[.24, .24, .24, .24, .04])
-        want = np.sort(sketch_nt4(seq, o.min_aa_len, o.kmer, o.mod_bit,
-                                  o.bbit, 77))
-        got = np.sort(sg.sketch_nt4_device(seq, o.min_aa_len, o.kmer,
-                                           o.mod_bit, o.bbit, 77, device=dev))
-        if not np.array_equal(got, want):
-            fail(f"sketch_orf n={n}: device sketch != host sketch_nt4")
-    sd = torch.from_numpy(seq).to(dev)
-    args = (sd, o.min_aa_len, o.kmer, o.mod_bit)
-    hs, ps, keep = sg.sketch_frames(*args)
+
+    def random_strand(n):
+        return rng.choice(np.arange(5, dtype=np.uint8), n,
+                          p=[.24, .24, .24, .24, .04])
+
+    tile = 3 * sg.TILE_SLOTS
+    cases = [(random_strand(n), o.min_aa_len)
+             for n in (5, tile - 1, tile, tile + 1, 1_000_003)]
+    orfs = orf_strand(rng, 2_000_000, 3000)
+    cases += [(orfs, 30), (orfs, 2000), (random_strand(strand_bp),
+                                          o.min_aa_len)]
+    for seq, mal in cases:
+        n, args = len(seq), (mal, o.kmer, o.mod_bit, o.bbit, 77)
+        sd = torch.from_numpy(seq).to(dev)
+        got = sg.sketch_entries(sd, *args)
+        if not torch.equal(got, sg.sketch_entries_plain(sd, *args)):
+            fail(f"sketch_orf n={n} -L {mal}: kernel != plain version")
+        want = np.sort(sketch_nt4(seq, *args))
+        if not np.array_equal(np.sort(got.cpu().numpy().view(np.uint64)),
+                              want):
+            fail(f"sketch_orf n={n} -L {mal}: entries != host sketch_nt4")
+        if not np.array_equal(np.sort(sg.sketch_nt4_device(
+                seq, *args, device=dev)), want):
+            fail(f"sketch_orf n={n} -L {mal}: sketch_nt4_device != host "
+                 "sketch_nt4")
+        print(f"[K6 sketch_orf] n={n} -L {mal}: {len(want)} entries, "
+              "exact vs plain (in order) and host sketch_nt4", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run = sg.sketch_launch(sd, *args)
+    except RuntimeError as e:
+        fail(f"sketch_launch synchronizes the stream: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(torch.cat(run.regions()), got):
+        fail("sketch_launch under sync debug mode: other entries")
+    print("[sync] sketch_launch: no stream synchronization", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hp, pp, kp = sg.sketch_frames_plain(*args)
+    sg.sketch_entries_plain(sd, *args)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    if not (torch.equal(keep, kp) and torch.equal(hs[keep], hp[kp])
-            and torch.equal(ps[keep], pp[kp])):
-        fail("sketch_orf: kernel != plain version")
-    ms = time_ms(lambda: sg.sketch_frames(*args), reps=5)
-    windows = int(keep.numel())
-    bms, by = bound(n + 9 * windows, SKETCH_OPS_PER_SLOT * windows,
-                    INT32_OPS_PER_S)
-    print(f"[K6 sketch_orf] strand of {n} bp: exact vs plain and host "
-          f"sketch_nt4; {ms:.3f} ms ({n / ms / 1e6:.2f} Gbp/s), "
-          f"{int(keep.sum())} of {windows} windows kept; plain "
-          f"{plain_ms:.1f} ms; bound {bms:.4f} ms ({by})", flush=True)
+    reps = 20
+    with kernels.timed_launches() as kernel_ms:
+        ms = time_ms(lambda: sg.sketch_launch(sd, *args), reps=reps)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sg.sketch_nt4_device(seq, *args, device=dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 3
+    kept = len(got)
+    bms, by, run_windows, windows, most = sketch_bound(sd, kept, mal, o.kmer)
+    print(f"[K6 sketch_orf] strand of {n} bp: {ms:.4f} ms a launch (status "
+          f"fill + kernel; the kernel alone "
+          f"{kernel_ms['mp_sketch_orf'] / (reps + 1):.4f}), "
+          f"{n / ms / 1e6:.2f} Gbp/s, {kept} of {windows} windows kept, "
+          f"{run_windows} pass the run tests; "
+          f"sketch_nt4_device (upload, launch, count read, pull-back) "
+          f"{wall_ms:.2f} ms host wall; plain {plain_ms:.1f} ms; bound "
+          f"{bms:.4f} ms ({by}; bytes {1e3 * (n + 8 * kept) / MEM_BYTES_PER_S:.4f})"
+          f", {ms / bms:.2f}x; with every window hashed {most:.4f} ms "
+          f"({ms / most:.2f}x)",
+          flush=True)
     return dict(name=f"sketch_orf[{n} bp]", route="cuda",
                 source=SRC + "sketch_orf.cu",
                 replaces="miniprot_tpu/kernels/sketch_jax.py:52",
                 counter="sketch_orf", paths=("index",), max_abs_err=0, ms=ms,
                 plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=None)
+
+
+INDEX_STAGES = ("fetch_s", "sketch_s", "bb_add_s", "bb_finish_s")
+
+
+@contextlib.contextmanager
+def _timed_index_stages():
+    """Add up the host seconds of the --gpu-sketch build's stages by
+    timing around NtDB.get, sketch_nt4_device, native.bb_add and
+    native.bb_finish, the boundaries of Index.build's own ``stats``; for
+    a tree whose Index.build has no such argument.  Yields the dict."""
+    from miniprot_tpu_torch import native
+    from miniprot_tpu_torch.genome import NtDB
+    from miniprot_tpu_torch.kernels import sketch_gpu
+    totals = dict.fromkeys(INDEX_STAGES, 0.0)
+    patched = [(NtDB, "get", "fetch_s"),
+               (sketch_gpu, "sketch_nt4_device", "sketch_s"),
+               (native, "bb_add", "bb_add_s"),
+               (native, "bb_finish", "bb_finish_s")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                totals[key] += time.perf_counter() - t0
+        return wrapper
+
+    for (obj, name, key), (_, _, fn) in zip(patched, saved):
+        setattr(obj, name, timed(fn, key))
+    try:
+        yield totals
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def index_build(fa, stats=None):
+    """Index.build of ``fa`` with the device sketch, launch counts set to
+    0 just before it; returns (index, wall s, stage s, launches).  Stage
+    seconds come from Index.build's ``stats``, or are timed around its
+    calls in a tree whose Index.build has none."""
+    import inspect
+
+    from miniprot_tpu_torch import kernels
+    from miniprot_tpu_torch.index import Index
+    from miniprot_tpu_torch.options import IdxOpt
+    own = "stats" in inspect.signature(Index.build).parameters
+    kernels.reset_launch_counts()
+    with (contextlib.nullcontext({}) if own
+          else _timed_index_stages()) as stages:
+        t0 = time.perf_counter()
+        mi = Index.build(fa, IdxOpt(), sketch_device="cuda",
+                         **({"stats": stages} if own else {}))
+        wall = time.perf_counter() - t0
+    return mi, wall, stages, kernels.launch_counts()
+
+
+def _stages_line(wall, stages):
+    return (f"{wall:.3f} s: " + ", ".join(
+        f"{k[:-2]} {stages[k]:.3f}" for k in INDEX_STAGES)
+        + f", the rest (FASTA parse, offsets, allocation) "
+        f"{wall - sum(stages[k] for k in INDEX_STAGES):.3f}")
+
+
+def phase_index(genome_mb, n_prot, reps=2):
+    """The e2e workload's --gpu-sketch index build alone (no kernel
+    phases, no maps), after one warm-up sketch, ``reps`` times with its
+    stage split, and K6's device ms on the workload's first strand: the
+    comparison of two trees (--package) in one call.  A tree whose
+    sketch_gpu has no sketch_launch is timed through its dense
+    sketch_frames launch."""
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch.genome import NtDB
+    from miniprot_tpu_torch.kernels import sketch_gpu as sg
+    from miniprot_tpu_torch.options import IdxOpt
+    from miniprot_tpu_torch.testgen import make_workload
+    sg.sketch_nt4_device(np.zeros(100_000, np.uint8), 30, 6, 1, 8, 0,
+                         device="cuda")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as d:
+        fa, faa = os.path.join(d, "g.fa"), os.path.join(d, "q.faa")
+        make_workload(fa, faa, genome_len=genome_mb * 1_000_000,
+                      n_genes=n_prot, seed=11, n_ctg=N_CTG,
+                      max_intron=20_000, rev_frac=0.5, fs_frac=0.1)
+        for r in range(reps):
+            mi, wall, stages, launches = index_build(fa)
+            print(f"[index run {r + 1}] --gpu-sketch build "
+                  f"({len(mi.kb)} kmer-block pairs, "
+                  f"{launches['sketch_orf']} sketch_orf launches) "
+                  + _stages_line(wall, stages), flush=True)
+        o = IdxOpt()
+        sd = torch.from_numpy(NtDB.from_fasta(fa).get(0, 0, -1, False)).cuda()
+        bound_note = ""
+        if hasattr(sg, "sketch_launch"):
+            args = (sd, o.min_aa_len, o.kmer, o.mod_bit, o.bbit, 0)
+            ms = time_ms(lambda: sg.sketch_launch(*args), reps=20)
+            kept = len(sg.sketch_entries(*args))
+            bms, by, run_windows, windows, _ = sketch_bound(
+                sd, kept, o.min_aa_len, o.kmer)
+            bound_note = (f"; {kept} kept, {run_windows} of {windows} windows "
+                          f"pass the run tests; bound {bms:.4f} ms ({by}), "
+                          f"{ms / bms:.2f}x")
+        else:
+            ms = time_ms(lambda: sg.sketch_frames(sd, o.min_aa_len, o.kmer,
+                                                  o.mod_bit), reps=20)
+        print(f"[index] K6 on the first strand ({len(sd)} bp): {ms:.4f} ms "
+              f"a launch{bound_note}", flush=True)
 
 
 def _map(mi, faa, opt, device, threads, need=()):
@@ -955,12 +1144,7 @@ def phase_e2e(genome_mb, n_prot, threads):
         gpu0 = _map(mi, faa, o0, "cuda", threads, k45)
         host0 = _map(mi, faa, o0, None, threads)
         profiler.enabled = False
-        from miniprot_tpu_torch import kernels
-        kernels.reset_launch_counts()
-        t3 = time.perf_counter()
-        mi_gpu = Index.build(fa, IdxOpt(), sketch_device="cuda")
-        t4 = time.perf_counter()
-        sk_launches = kernels.launch_counts()
+        mi_gpu, sk_wall, sk_stages, sk_launches = index_build(fa)
     if gpu["out"] != host["out"]:
         fail("GPU engine output differs from the host engine's")
     if gpu["out"].count("\n") < n_prot // 2:
@@ -981,42 +1165,12 @@ def phase_e2e(genome_mb, n_prot, threads):
     if sk_launches["sketch_orf"] <= 0:
         fail("kernel sketch_orf was not launched by the index build")
     print(f"[e2e index] --gpu-sketch build equal to the host build "
-          f"({len(mi.kb)} kmer-block pairs): {t4 - t3:.1f} s on the card "
+          f"({len(mi.kb)} kmer-block pairs): {sk_wall:.2f} s on the card "
           f"(one process, {sk_launches['sketch_orf']} sketch_orf launches) "
-          f"vs {t2 - t1:.1f} s host ({threads} processes)", flush=True)
+          f"vs {t2 - t1:.1f} s host ({threads} processes); card build "
+          + _stages_line(sk_wall, sk_stages), flush=True)
     return {"default": gpu["launches"], "striped route": striped["launches"],
             "-O 0": gpu0["launches"], "index": sk_launches}
-
-
-@contextlib.contextmanager
-def _timed_batch_launches():
-    """Add up the host seconds inside every batch class's launch(), as
-    the engine's launch_s does; for a tree whose engine has no such stat
-    (before K7).  Yields a one-item list holding the sum."""
-    from miniprot_tpu_torch.kernels import nasw_cigar_scan as sk
-    from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
-    from miniprot_tpu_torch.kernels import nasw_ext as ne
-    total, saved = [0.0], []
-
-    def timed(fn):
-        def launch(self):
-            t0 = time.monotonic()
-            try:
-                return fn(self)
-            finally:
-                total[0] += time.monotonic() - t0
-        return launch
-
-    classes = {c for m in (ne, sk, st) for c in vars(m).values()
-               if isinstance(c, type) and "launch" in vars(c)}
-    for cls in classes:
-        saved.append((cls, cls.launch))
-        cls.launch = timed(cls.launch)
-    try:
-        yield total
-    finally:
-        for cls, fn in saved:
-            cls.launch = fn
 
 
 def phase_maps(genome_mb, n_prot, threads):
@@ -1024,12 +1178,10 @@ def phase_maps(genome_mb, n_prot, threads):
     phases), each with its proteins/s, the host seconds inside the
     batches' launch(), align_rounds and the kernels' device time: the
     comparison of two trees (--package) in one call."""
-    from miniprot_tpu_torch import device
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt
     from miniprot_tpu_torch.sysutil import profiler
     from miniprot_tpu_torch.testgen import make_workload
-    legacy = not hasattr(device.GpuExtEngine, "_launch")
     o0 = MapOpt()
     o0.go = 0
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
@@ -1046,16 +1198,14 @@ def phase_maps(genome_mb, n_prot, threads):
             if impl:
                 os.environ["MINIPROT_TPU_CIG_IMPL"] = impl
             try:
-                with (_timed_batch_launches() if legacy
-                      else contextlib.nullcontext([None])) as lt:
-                    run = _map(mi, faa, opt, "cuda", threads)
+                run = _map(mi, faa, opt, "cuda", threads)
             finally:
                 os.environ.pop("MINIPROT_TPU_CIG_IMPL", None)
-            launch_s = run["stats"].get("launch_s", lt[0])
+            launch_s = run["stats"]["launch_s"]
             busy = sum(run["kernel_ms"].values()) / 1e3
             print(f"[maps {tag}] {run['n'] / run['wall']:.2f} proteins/s "
                   f"({run['wall']:.2f} s); inside the batches' launch() "
-                  f"{launch_s:.3f} s{' (timed around launch())' if legacy else ''}"
+                  f"{launch_s:.3f} s"
                   f"; align_rounds {run['stages'].get('align_rounds', 0):.3f}; "
                   f"in collects {run['blocked']:.3f}; kernels {busy:.3f} s: "
                   + ", ".join(f"{k} {v:.1f} ms"
@@ -1071,6 +1221,9 @@ def main() -> None:
     ap.add_argument("--maps-only", action="store_true",
                     help="only the e2e workload's three GPU maps, each with "
                     "its host seconds inside the batches' launch()")
+    ap.add_argument("--index-only", action="store_true",
+                    help="only the e2e workload's --gpu-sketch index build, "
+                    "twice, each with its stage split")
     ap.add_argument("--package", metavar="DIR",
                     help="import miniprot_tpu_torch from DIR (another "
                     "checkout, e.g. a parent commit's) instead of this one")
@@ -1100,6 +1253,13 @@ def main() -> None:
               f"{os.path.dirname(os.path.dirname(kernels.__file__))}",
               flush=True)
         phase_maps(args.genome_mb, args.proteins, args.threads)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s")
+        return
+    if args.index_only:
+        print(f"[index] miniprot_tpu_torch from "
+              f"{os.path.dirname(os.path.dirname(kernels.__file__))}",
+              flush=True)
+        phase_index(args.genome_mb, args.proteins)
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return
     t0 = time.perf_counter()

@@ -13,6 +13,7 @@ cross-validated with the reference tool.
 from __future__ import annotations
 
 import struct
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -74,7 +75,7 @@ class Index:
 
     @classmethod
     def build(cls, fn_or_db, opt: IdxOpt, n_threads: int = 1,
-              sketch_device=None) -> "Index":
+              sketch_device=None, stats: dict | None = None) -> "Index":
         """Build from a FASTA path or an NtDB (mp_idx_build, index.c:97-136).
 
         n_threads > 1 sketches contig-strands on a fork-based process
@@ -85,7 +86,10 @@ class Index:
         sketch_device ("cuda" or "cpu") sketches the six frames of each
         strand with kernels/sketch_gpu.py on that device instead (equal
         to the host sketch) — --gpu-sketch on the CLI; None keeps the
-        host C sketch."""
+        host C sketch.  With sketch_device, ``stats`` (a dict) receives
+        the host seconds of its stages: fetch_s (nt.get, the reverse
+        complement included), sketch_s (upload, K6, pull-back),
+        bb_add_s and bb_finish_s."""
         tables.set_default_code(opt.trans_code)
         from . import native, sysutil
         from .sysutil import profiler
@@ -104,17 +108,23 @@ class Index:
         # across strand parts (see mx_bb_finish); replaces 5-6
         # full-array radix passes per strand and the full-size cursor
         # table walks of the counting merge.
+        stage = dict.fromkeys(("fetch_s", "sketch_s", "bb_add_s",
+                               "bb_finish_s"), 0.0)
         if sketch_device is not None:
-            from .kernels.sketch_gpu import sketch_nt4_device
+            from .kernels import sketch_gpu
 
             def raw_parts():
                 for cid, strand in jobs:
+                    t0 = time.perf_counter()
                     seq = nt.get(cid, 0, -1, bool(strand))
-                    yield sketch_nt4_device(seq, opt.min_aa_len, opt.kmer,
-                                            opt.mod_bit, opt.bbit,
-                                            int(bo[cid << 1 | strand]),
-                                            opt.trans_code,
-                                            device=sketch_device)
+                    t1 = time.perf_counter()
+                    part = sketch_gpu.sketch_nt4_device(
+                        seq, opt.min_aa_len, opt.kmer, opt.mod_bit, opt.bbit,
+                        int(bo[cid << 1 | strand]), opt.trans_code,
+                        device=sketch_device)
+                    stage["fetch_s"] += t1 - t0
+                    stage["sketch_s"] += time.perf_counter() - t1
+                    yield part
         elif n_threads > 1 and len(jobs) > 1:
             def raw_parts():
                 import multiprocessing as mp
@@ -158,14 +168,22 @@ class Index:
         total = 0
         for part in raw_parts():
             total += len(part)
+            t0 = time.perf_counter()
             native.bb_add(part)
+            stage["bb_add_s"] += time.perf_counter() - t0
         sysutil.log("Index.build", "collected syncmers")
         ki = np.empty(n_bucket, np.int64)
         kb = np.empty(total, np.uint32)
+        t0 = time.perf_counter()
         n_final = native.bb_finish(ki, kb)
+        stage["bb_finish_s"] = time.perf_counter() - t0
+        if stats is not None and sketch_device is not None:
+            stats.update(stage)
         kb = kb[:n_final]
         sysutil.log("Index.build", "%d kmer-block pairs", len(kb))
         native.release_sketch_buf()
+        if sketch_device is not None:
+            sketch_gpu.release_buffers()
         profiler.stop("index_build")
         return cls(opt, nt, bo, ki, kb)
 

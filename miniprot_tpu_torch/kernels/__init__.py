@@ -56,9 +56,9 @@ _SIGNATURES = {
     "mp_striped_cigar32": [_vp] * 9 + [_i] * 8 + [_vp],
     # tb nl al states fi fj | n TR W steps | stream
     "mp_cell_walk": [_vp] * 6 + [_i] * 4 + [_vp],
-    # seq codon codon13 hs ps keep | ns0 ns1 ns2 off1 off2 | min_aa_len
-    # kmer mod_bit | stream
-    "mp_sketch_orf": [_vp] * 6 + [_ll] * 5 + [_i] * 3 + [_vp],
+    # seq out status | n off1 off2 boff | min_aa_len kmer mod_bit bbit |
+    # params (host) | stream
+    "mp_sketch_orf": [_vp] * 3 + [_ll] * 4 + [_i] * 4 + [_vp] * 2,
     # nt8 left io nl al nas D A logpen | n R | params (host) | stream
     "mp_track_prep": [_vp] * 9 + [_i] * 2 + [_vp] * 2,
 }

@@ -56,6 +56,21 @@ def _write_fasta_seq(f, ascii_arr: np.ndarray, line_len: int) -> None:
         f.write(ascii_arr[full:].tobytes() + b"\n")
 
 
+def orf_strand(rng, n: int, mean_run: float, p_n: float = 0.0002) -> np.ndarray:
+    """n nt4 codes of frame-0 sense codons with a stop codon every
+    ~mean_run codons and N (code 4) at rate p_n: ORFs of any length for
+    the six-frame sketch's tests."""
+    T = tables.get_tables(1)
+    sense, stops = np.flatnonzero(T.codon < 20), np.flatnonzero(T.codon >= 20)
+    cod = rng.choice(sense, n // 3 + 1)
+    brk = rng.random(len(cod)) < 1.0 / mean_run
+    cod[brk] = rng.choice(stops, int(brk.sum()))
+    seq = np.stack([cod >> 4 & 3, cod >> 2 & 3, cod & 3], 1).reshape(-1)[:n]
+    seq = seq.astype(np.uint8)
+    seq[rng.random(n) < p_n] = 4
+    return seq
+
+
 def make_workload(path_fa: str, path_faa: str, *, genome_len: int = 2_000_000,
                   n_genes: int = 100, seed: int = 42, n_ctg: int = 2,
                   max_exons: int = 8, max_intron: int = 20000,

@@ -17,6 +17,7 @@ from miniprot_tpu_torch.kernels import nasw_cigar_scan as sk
 from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
 from miniprot_tpu_torch.kernels import nasw_ext as ne
 from miniprot_tpu_torch.kernels import sketch_gpu
+from miniprot_tpu_torch.testgen import orf_strand
 
 pytestmark = pytest.mark.gpu
 
@@ -263,16 +264,69 @@ def test_dp32_wider_than_1024_raises_on_card(cuda_card):
 
 
 def test_sketch_kernel_matches_plain(cuda_card):
+    """K6's packed entries equal its plain version in order (and, sorted,
+    the host sketch_nt4): random strands of 5, 3000 and 200,000 bases
+    and of one tile (3 TILE_SLOTS bases) +- 1; long-ORF strands with -L
+    past the 32-slot staged halo and past a whole tile."""
+    from miniprot_tpu_torch.sketch import sketch_nt4
     rng = np.random.default_rng(17)
-    for n in (5, 3000, 200_000):
-        seq = torch.from_numpy(rng.choice(np.arange(5, dtype=np.uint8), n,
-                                          p=[.24, .24, .24, .24, .04]))
-        hs, ps, keep = sketch_gpu.sketch_frames(seq.to(cuda_card), 30, 6, 1)
-        hp, pp, kp = sketch_gpu.sketch_frames_plain(seq.to(cuda_card), 30, 6,
-                                                    1)
-        torch.cuda.synchronize()
-        assert torch.equal(keep, kp)
-        assert torch.equal(hs[keep], hp[kp]) and torch.equal(ps[keep], pp[kp])
+    tile = 3 * sketch_gpu.TILE_SLOTS
+    cases = [(rng.choice(np.arange(5, dtype=np.uint8), n,
+                         p=[.24, .24, .24, .24, .04]), 30)
+             for n in (5, 3000, 200_000, tile - 1, tile, tile + 1)]
+    cases += [(orf_strand(rng, 300_000, run), mal)
+              for run, mal in ((300, 100), (3000, 2000), (3000, 30))]
+    for seq, mal in cases:
+        args = (mal, 6, 1, 8, 77)
+        got = sketch_gpu.sketch_entries(torch.from_numpy(seq).to(cuda_card),
+                                        *args)
+        want = sketch_gpu.sketch_entries_plain(
+            torch.from_numpy(seq).to(cuda_card), *args)
+        assert torch.equal(got, want), (len(seq), mal)
+        host = np.sort(sketch_nt4(seq, *args))
+        assert np.array_equal(np.sort(got.cpu().numpy().view(np.uint64)),
+                              host)
+        assert np.array_equal(np.sort(sketch_gpu.sketch_nt4_device(
+            seq, *args, device=cuda_card)), host)
+    assert len(want) > 0
+
+
+def test_sketch_launch_does_not_synchronize(cuda_card):
+    """sketch_launch makes no blocking copy (the tables go by value):
+    under set_sync_debug_mode("error") a launch runs; the count read
+    after it is the one synchronization."""
+    seq = torch.from_numpy(orf_strand(np.random.default_rng(3), 100_000,
+                                       500)).to(cuda_card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run = sketch_gpu.sketch_launch(seq, 30, 6, 1, 8, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = torch.cat(run.regions())
+    assert torch.equal(got, sketch_gpu.sketch_entries_plain(seq, 30, 6, 1, 8,
+                                                            0))
+
+
+def test_index_build_on_card_matches_host(cuda_card, tmp_path):
+    """Index.build(sketch_device=card) equals the host build array for
+    array and frees sketch_nt4_device's pinned buffers; the dense
+    sketch_frames, which no kernel computes, raises on the card."""
+    from miniprot_tpu_torch.index import Index
+    from miniprot_tpu_torch.options import IdxOpt
+    from miniprot_tpu_torch.testgen import make_workload
+    fa, faa = str(tmp_path / "g.fa"), str(tmp_path / "q.faa")
+    make_workload(fa, faa, genome_len=400_000, n_genes=4, seed=3, n_ctg=3,
+                  max_intron=1500, rev_frac=0.5)
+    a = Index.build(fa, IdxOpt())
+    b = Index.build(fa, IdxOpt(), sketch_device=cuda_card)
+    assert np.array_equal(a.ki, b.ki)
+    assert np.array_equal(a.kb, b.kb)
+    assert np.array_equal(a.bo, b.bo)
+    assert not sketch_gpu._pinned
+    with pytest.raises(ValueError, match="dense form"):
+        sketch_gpu.sketch_frames(torch.zeros(100, dtype=torch.uint8,
+                                             device=cuda_card), 30, 6, 1)
 
 
 def _homolog(rng, T, al, nl):
