@@ -6,11 +6,13 @@ shapes, times it, then maps a whole-genome-scale synthetic workload on
 the card and on the host engine and requires byte-identical output.
 
     python3 chip_smoke.py [--genome-mb 200] [--proteins 2000] [--threads N]
-    python3 chip_smoke.py --maps-only [--package DIR]
+    python3 chip_smoke.py --maps-only [--pre-chunk N[,N...]] [--package DIR]
     python3 chip_smoke.py --index-only [--package DIR]
 
-The second form runs only the e2e workload's three GPU maps, each with
-its host seconds inside the batches' launch(); the third only its
+The second form runs only the e2e workload's three GPU maps (at each
+--pre-chunk), each with its stage split (pre_align, pre_align_wait,
+align_rounds, launch(), decode), collect waves against the wait they
+cost, flush rounds and launches; the third only its
 --gpu-sketch index build, twice, with the build's stage split (fetch,
 sketch, bb_add, bb_finish) and K6's time on the first strand.
 --package DIR runs the miniprot_tpu_torch of another checkout (a parent
@@ -45,19 +47,26 @@ Phases (any failure exits non-zero and prints no result):
      around a tile and at -L past its halo; one launch under
      torch.cuda.set_sync_debug_mode("error")) — exact equality with the
      plain versions on the card and with the host engine (native.dp16 /
-     dp32 / sketch_nt4); time, cells, GCUPS, bound
+     dp32 / sketch_nt4); time, cells, GCUPS, bound; one flush_begin of
+     a round of ext and scan jobs (launches, collect wave, host DPs)
+     under torch.cuda.set_sync_debug_mode("error"), its results equal
+     to the host engine's
   4. end to end: testgen's 200 Mb x 2000-protein workload mapped with
      the GPU engine and the host engine, byte-identical, device cell
-     fraction >= 0.90, every kernel of the path launched; then the GPU
+     fraction >= 0.90, every kernel of the path launched; the GPU map
+     again at PRE_CHUNK 0 (pre_align for the whole batch before the
+     first round: no overlap); then the GPU
      map on the striped route (MINIPROT_TPU_CIG_IMPL=striped) against
-     the same host output, the -O 0 map on both engines, and the index
-     built with the device sketch against the host index (with its
-     stage split).  Each run
+     the same host output, the -O 0 map on both engines, MapServer on
+     the card answering two disjoint subsets of the proteins and an
+     empty request (each reply equal to map_file of its subset), and
+     the index built with the device sketch against the host index
+     (with its stage split).  Each run
      sets the launch counts to 0 just before it and reads them after;
      the kernels' device time per run (CUDA events around each launch),
      launches and problems per launch per (kind, width, nl bucket),
      the DPs the engine ran on the host, by reason, with their host
-     seconds, and the host seconds inside the batches' launch()
+     seconds, and the map's stages, collect waves and flush rounds
   5. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
@@ -312,24 +321,6 @@ def scoring():
     return opt, env, scal, T, kw
 
 
-def homolog(rng, T, al, nl, mut_rate=0.1):
-    """(nsq, asq): a protein and a genome window that spells it in
-    codons with mut_rate substituted codons, followed by random
-    sequence."""
-    import numpy as np
-    asq = rng.choice(np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8), al)
-    rev = np.full(22, -1, np.int64)
-    for c in range(63, -1, -1):
-        rev[T.codon[c]] = c
-    cod = rev[T.aa20[asq]]
-    mut = rng.random(al) < mut_rate
-    cod[mut] = rng.integers(0, 64, int(mut.sum()))
-    nt4 = np.stack([(cod >> 4) & 3, (cod >> 2) & 3, cod & 3], 1).reshape(-1)
-    tail = rng.integers(0, 4, max(0, nl - len(nt4)))
-    nt4 = np.concatenate([nt4, tail])[:nl]
-    return np.frombuffer(b"ACGT", np.uint8)[nt4].copy(), asq.copy()
-
-
 def _same_results(a, b) -> bool:
     """Two collect() result lists equal (None, ints, CIGAR arrays)."""
     import numpy as np
@@ -416,6 +407,7 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
     from miniprot_tpu_torch import native
     from miniprot_tpu_torch.kernels import nasw_ext as ne
     from miniprot_tpu_torch.native import DPF_EXT_LEFT, DPF_EXT_RIGHT
+    from miniprot_tpu_torch.testgen import text_homolog
     opt, env, scal, T, kw = scoring()
     if go is not None:
         scal = (go,) + scal[1:]
@@ -429,7 +421,7 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
     for _ in range(n):
         al = int(rng.integers(al_pad // 2, al_pad + 1))
         nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
-        nsq, asq = homolog(rng, T, al, nl)
+        nsq, asq = text_homolog(rng, al, nl)
         left = bool(rng.integers(0, 2))
         nt4, aas = T.nt4[nsq], T.aa20[asq]
         if left:
@@ -489,6 +481,7 @@ def probe_ext_capacity(al_pad, nl_pad, ns, seed):
     import torch
 
     from miniprot_tpu_torch.kernels import nasw_ext as ne
+    from miniprot_tpu_torch.testgen import text_homolog
     opt, env, scal, T, kw = scoring()
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -498,7 +491,7 @@ def probe_ext_capacity(al_pad, nl_pad, ns, seed):
     for _ in range(N):
         al = int(rng.integers(al_pad // 2, al_pad + 1))
         nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
-        nsq, asq = homolog(rng, T, al, nl)
+        nsq, asq = text_homolog(rng, al, nl)
         batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
     thr = ne._logpen_thresholds(float(np.float32(opt.ie_coef)), batch.nl)
     als = ne._upload(batch.als, dev)
@@ -530,6 +523,7 @@ def phase_scan(W, nl_pad, n, seed, prep=False):
     from miniprot_tpu_torch.kernels import nasw_cigar_scan as sk
     from miniprot_tpu_torch.kernels import nasw_ext as ne
     from miniprot_tpu_torch.native import DPF_CIGAR
+    from miniprot_tpu_torch.testgen import text_homolog
     opt, env, scal, T, kw = scoring()
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -540,7 +534,7 @@ def phase_scan(W, nl_pad, n, seed, prep=False):
     for _ in range(n):
         al = int(rng.integers(al_lo, W + 1))
         nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
-        nsq, asq = homolog(rng, T, al, nl)
+        nsq, asq = text_homolog(rng, al, nl)
         batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
         cases.append((nsq, asq))
     R = batch._rows()
@@ -652,6 +646,7 @@ def phase_striped(W, nl_pad, n, seed, go, k2_ms):
     from miniprot_tpu_torch import native
     from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
     from miniprot_tpu_torch.native import DPF_CIGAR
+    from miniprot_tpu_torch.testgen import text_homolog
     opt, env, scal, T, kw = scoring()
     scal = (go,) + scal[1:]
     kw = dict(kw, go=go)
@@ -664,7 +659,7 @@ def phase_striped(W, nl_pad, n, seed, go, k2_ms):
     for _ in range(n):
         al = int(rng.integers(al_lo, W + 1))
         nl = int(rng.integers(nl_pad // 2, nl_pad + 1))
-        nsq, asq = homolog(rng, T, al, nl)
+        nsq, asq = text_homolog(rng, al, nl)
         batch.add_raw(T.nt4[nsq], T.aa20[asq], io=opt.io)
         cases.append((nsq, asq))
     args, nlv, alv = _striped_inputs(batch)
@@ -743,6 +738,7 @@ def phase_dp32(W, nl_pad, n, seed, go=None):
     from miniprot_tpu_torch.kernels import nasw_cigar_striped as st
     from miniprot_tpu_torch.kernels.nasw_ext import prep_problem
     from miniprot_tpu_torch.native import DPF_CIGAR
+    from miniprot_tpu_torch.testgen import text_homolog
     opt, env, scal, T, kw = scoring()
     go = opt.go if go is None else go
     scal = (go,) + scal[1:]
@@ -757,7 +753,7 @@ def phase_dp32(W, nl_pad, n, seed, go=None):
     for k in range(n):
         al = int(rng.integers(W // 2, W + 1))
         nl = int(rng.integers(3 * al, nl_pad + 1))
-        nsq, asq = homolog(rng, T, al, nl, 0.0 if k % 4 == 0 else 0.1)
+        nsq, asq = text_homolog(rng, al, nl, 0.0 if k % 4 == 0 else 0.1)
         nas, aas, d, a = prep_problem(nsq, asq, sp=env.sp,
                                       sp_null_bonus=opt.sp_null_bonus,
                                       io=opt.io, ext_left=False)
@@ -924,58 +920,18 @@ def phase_sketch(seed, strand_bp):
 INDEX_STAGES = ("fetch_s", "sketch_s", "bb_add_s", "bb_finish_s")
 
 
-@contextlib.contextmanager
-def _timed_index_stages():
-    """Add up the host seconds of the --gpu-sketch build's stages by
-    timing around NtDB.get, sketch_nt4_device, native.bb_add and
-    native.bb_finish, the boundaries of Index.build's own ``stats``; for
-    a tree whose Index.build has no such argument.  Yields the dict."""
-    from miniprot_tpu_torch import native
-    from miniprot_tpu_torch.genome import NtDB
-    from miniprot_tpu_torch.kernels import sketch_gpu
-    totals = dict.fromkeys(INDEX_STAGES, 0.0)
-    patched = [(NtDB, "get", "fetch_s"),
-               (sketch_gpu, "sketch_nt4_device", "sketch_s"),
-               (native, "bb_add", "bb_add_s"),
-               (native, "bb_finish", "bb_finish_s")]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-
-    def timed(fn, key):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                totals[key] += time.perf_counter() - t0
-        return wrapper
-
-    for (obj, name, key), (_, _, fn) in zip(patched, saved):
-        setattr(obj, name, timed(fn, key))
-    try:
-        yield totals
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
-
-
-def index_build(fa, stats=None):
+def index_build(fa):
     """Index.build of ``fa`` with the device sketch, launch counts set to
-    0 just before it; returns (index, wall s, stage s, launches).  Stage
-    seconds come from Index.build's ``stats``, or are timed around its
-    calls in a tree whose Index.build has none."""
-    import inspect
-
+    0 just before it; returns (index, wall s, stage s from the build's
+    ``stats``, launches)."""
     from miniprot_tpu_torch import kernels
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt
-    own = "stats" in inspect.signature(Index.build).parameters
+    stages: dict = {}
     kernels.reset_launch_counts()
-    with (contextlib.nullcontext({}) if own
-          else _timed_index_stages()) as stages:
-        t0 = time.perf_counter()
-        mi = Index.build(fa, IdxOpt(), sketch_device="cuda",
-                         **({"stats": stages} if own else {}))
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mi = Index.build(fa, IdxOpt(), sketch_device="cuda", stats=stages)
+    wall = time.perf_counter() - t0
     return mi, wall, stages, kernels.launch_counts()
 
 
@@ -990,9 +946,7 @@ def phase_index(genome_mb, n_prot, reps=2):
     """The e2e workload's --gpu-sketch index build alone (no kernel
     phases, no maps), after one warm-up sketch, ``reps`` times with its
     stage split, and K6's device ms on the workload's first strand: the
-    comparison of two trees (--package) in one call.  A tree whose
-    sketch_gpu has no sketch_launch is timed through its dense
-    sketch_frames launch."""
+    comparison of two trees (--package) in one call."""
     import numpy as np
     import torch
 
@@ -1016,43 +970,55 @@ def phase_index(genome_mb, n_prot, reps=2):
                   + _stages_line(wall, stages), flush=True)
         o = IdxOpt()
         sd = torch.from_numpy(NtDB.from_fasta(fa).get(0, 0, -1, False)).cuda()
-        bound_note = ""
-        if hasattr(sg, "sketch_launch"):
-            args = (sd, o.min_aa_len, o.kmer, o.mod_bit, o.bbit, 0)
-            ms = time_ms(lambda: sg.sketch_launch(*args), reps=20)
-            kept = len(sg.sketch_entries(*args))
-            bms, by, run_windows, windows, _ = sketch_bound(
-                sd, kept, o.min_aa_len, o.kmer)
-            bound_note = (f"; {kept} kept, {run_windows} of {windows} windows "
-                          f"pass the run tests; bound {bms:.4f} ms ({by}), "
-                          f"{ms / bms:.2f}x")
-        else:
-            ms = time_ms(lambda: sg.sketch_frames(sd, o.min_aa_len, o.kmer,
-                                                  o.mod_bit), reps=20)
+        args = (sd, o.min_aa_len, o.kmer, o.mod_bit, o.bbit, 0)
+        ms = time_ms(lambda: sg.sketch_launch(*args), reps=20)
+        kept = len(sg.sketch_entries(*args))
+        bms, by, run_windows, windows, _ = sketch_bound(
+            sd, kept, o.min_aa_len, o.kmer)
         print(f"[index] K6 on the first strand ({len(sd)} bp): {ms:.4f} ms "
-              f"a launch{bound_note}", flush=True)
+              f"a launch; {kept} kept, {run_windows} of {windows} windows "
+              f"pass the run tests; bound {bms:.4f} ms ({by}), "
+              f"{ms / bms:.2f}x", flush=True)
 
 
-def _map(mi, faa, opt, device, threads, need=()):
+@contextlib.contextmanager
+def _pre_chunk(n):
+    """pipeline.PRE_CHUNK set to ``n`` inside the block (None: left as
+    it is, or a tree without it)."""
+    from miniprot_tpu_torch import pipeline
+    old = getattr(pipeline, "PRE_CHUNK", None)
+    if n is not None and old is not None:
+        pipeline.PRE_CHUNK = n
+    try:
+        yield getattr(pipeline, "PRE_CHUNK", None)
+    finally:
+        if old is not None:
+            pipeline.PRE_CHUNK = old
+
+
+def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None):
     """One map_file run with the launch counts set to 0 just before it
     and read just after; fails unless every kernel in ``need`` was
     launched (and, for the host engine, unless none was)."""
     from miniprot_tpu_torch import kernels
     from miniprot_tpu_torch.pipeline import map_file
     from miniprot_tpu_torch.sysutil import profiler
-    profiler.reset()
-    kernels.reset_launch_counts()
-    buf, stats = io.StringIO(), {}
-    with kernels.timed_launches() as kernel_ms:
-        t0 = time.perf_counter()
-        n = map_file(mi, faa, opt, n_threads=threads, out=buf, device=device,
-                     stats=stats)
-        wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    with _pre_chunk(pre_chunk) as chunk:
+        profiler.reset()
+        kernels.reset_launch_counts()
+        buf, stats = io.StringIO(), {}
+        with kernels.timed_launches() as kernel_ms:
+            t0 = time.perf_counter()
+            n = map_file(mi, faa, opt, n_threads=threads, out=buf,
+                         device=device, stats=stats)
+            wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
     run = dict(out=buf.getvalue(), wall=wall, n=n, stats=stats,
                launches=launches, kernel_ms=kernel_ms,
-               stages=dict(profiler.stages),
-               blocked=profiler.device_blocked_s,
+               stages=dict(profiler.stages), pre_chunk=chunk,
+               wave=getattr(profiler, "wave_span_s", None),
+               exposed=getattr(profiler, "device_exposed_s", None),
+               collects=getattr(profiler, "device_blocked_s", None),
                rounds=profiler.flush_rounds)
     if device is None and any(launches.values()):
         fail(f"the host engine run launched kernels: {launches}")
@@ -1062,6 +1028,40 @@ def _map(mi, faa, opt, device, threads, need=()):
     if device is not None and stats["device_fraction"] < 0.90:
         fail(f"device cell fraction {stats['device_fraction']:.4f} < 0.90")
     return run
+
+
+def _stage_line(run) -> str:
+    """The GPU map's host stages, its collect waves against the wait they
+    cost the driving thread, its flush rounds and launches per kind.
+    A tree without the wave reports its collects' seconds alone."""
+    st, stats = run["stages"], run["stats"]
+    per_kind: dict = {}
+    for key, (t, _) in stats["bucket_problems"].items():
+        c = per_kind.setdefault(key[0], [0, 0])
+        c[0] += stats["bucket_batches"][key]
+        c[1] += t
+    waves = (f"collect waves span {run['wave']:.3f} s, exposed wait "
+             f"{run['exposed']:.3f} s" if run["wave"] is not None
+             else f"in collects (sync + decode) {run['collects']:.3f} s, "
+             "exposed wait not measured")
+    return (f"PRE_CHUNK {run['pre_chunk']}; pre_align "
+            f"{st.get('pre_align', 0):.3f}, pre_align_wait "
+            + (f"{st['pre_align_wait']:.3f}" if "pre_align_wait" in st
+               else "not measured")
+            + f", align_rounds {st.get('align_rounds', 0):.3f}, "
+            f"finish_align {st.get('finish_align', 0):.3f}, emit "
+            + (f"{st['emit']:.3f}" if "emit" in st else "not measured")
+            + ", pool start "
+            + (f"{st['pool_start']:.3f}" if "pool_start" in st
+               else "not measured")
+            + " s; inside the "
+            f"batches' launch() {stats['launch_s']:.3f} s, decode "
+            + (f"{stats['decode_s']:.3f} s" if "decode_s" in stats
+               else "not measured")
+            + f"; {waves}; {run['rounds']} flush rounds; launches / mean "
+            "problems per launch: " + ", ".join(
+                f"{k} {n} / {t / n:.1f}"
+                for k, (n, t) in sorted(per_kind.items())))
 
 
 def _report(tag, gpu, host, threads):
@@ -1095,20 +1095,115 @@ def _report(tag, gpu, host, threads):
           + ", ".join(f"{k} {v:.1f} ms"
                       for k, v in sorted(gpu["kernel_ms"].items()))
           + f"; {busy:.3f} s of {gpu['wall']:.2f} s "
-          f"(kernel busy share {busy / gpu['wall']:.4f})", flush=True)
-    print(f"[e2e {tag}] GPU map stages (host wall s): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(gpu["stages"].items()))
-          + f"; inside the batches' launch() {stats['launch_s']:.3f} "
-          f"(K7 device {gpu['kernel_ms'].get('mp_track_prep', 0.0):.1f} ms); "
-          f"in collects (sync + decode) {gpu['blocked']:.3f}; "
-          f"{gpu['rounds']} flush rounds", flush=True)
+          f"(kernel busy share {busy / gpu['wall']:.4f}); K7 device "
+          f"{gpu['kernel_ms'].get('mp_track_prep', 0.0):.1f} ms",
+          flush=True)
+    print(f"[e2e {tag}] GPU map stages (host wall s): " + _stage_line(gpu),
+          flush=True)
+
+
+def phase_flush_no_sync(seed):
+    """One flush_begin of a real round (K7, K1, K2 and K3 launches, the
+    collect wave's copies and events, the host DPs) under
+    torch.cuda.set_sync_debug_mode("error"); flush_end's results equal
+    the host engine's."""
+    import numpy as np
+    import torch
+
+    from miniprot_tpu_torch.device import GpuExtEngine
+    from miniprot_tpu_torch.native import (DPF_CIGAR, DPF_EXT_LEFT,
+                                           DPF_EXT_RIGHT)
+    from miniprot_tpu_torch.testgen import submit_round
+    opt, env, _, _, _ = scoring()
+    engine = GpuExtEngine(opt, "cuda")
+    rng = np.random.default_rng(seed)
+    submit_round(engine, rng, 64, 128)
+    engine.flush()                 # warm the allocators
+    ext, cig = submit_round(engine, rng, 64, 128)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fl = engine.flush_begin()
+    except RuntimeError as e:
+        fail(f"flush_begin synchronizes the stream: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res = engine.flush_end(fl)
+    for (ns, aa, left), r in zip(ext, res):
+        sc, ntl, aal, _ = env.dp(ns, aa,
+                                 DPF_EXT_LEFT if left else DPF_EXT_RIGHT)
+        if r != (sc, ntl, aal):
+            fail("flush under sync debug mode: an ext result differs from "
+                 "the host engine's")
+    for (ns, aa), r in zip(cig, res[-1]):
+        sc, _, _, c = env.dp(ns, aa, DPF_CIGAR)
+        if r[0] != sc or not np.array_equal(r[1], c):
+            fail("flush under sync debug mode: a CIGAR differs from the "
+                 "host engine's")
+    print(f"[sync] flush_begin of {len(ext)} ext + {len(cig)} CIGAR jobs "
+          f"(batches {engine.batches}): no stream synchronization; "
+          "flush_end equal to the host engine", flush=True)
+
+
+def phase_server(mi, faa, d, threads):
+    """MapServer on 127.0.0.1:0 on the card answers two disjoint subsets
+    of the workload's proteins and an empty request; each reply equals
+    map_file of the same subset on the host engine.  Returns the kernel
+    launches of the three requests."""
+    import threading
+
+    from miniprot_tpu_torch import kernels, server
+    from miniprot_tpu_torch.bseq import read_fastx
+    from miniprot_tpu_torch.options import MapOpt
+    recs = list(read_fastx(faa))
+    k = min(150, len(recs) // 2)
+    subsets = [recs[:k], recs[k:2 * k]]
+    opt = MapOpt()
+    want = []
+    for k, sub in enumerate(subsets):
+        fn = os.path.join(d, f"sub{k}.faa")
+        with open(fn, "wb") as f:
+            f.write(b"".join(b">" + r.name.encode() + b"\n" + r.seq + b"\n"
+                             for r in sub))
+        want.append((fn, _map(mi, fn, opt, None, threads)["out"]))
+    srv = server.MapServer(("127.0.0.1", 0), mi, opt, threads, "cuda")
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        host, port = srv.server_address
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = [server.query(host, port, open(fn, "rb").read())
+               for fn, _ in want]
+        empty = server.query(host, port, b"")
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(60)
+    for k, (g, (_, w)) in enumerate(zip(got, want)):
+        if g.decode() != w or not w:
+            fail(f"server reply {k + 1} differs from map_file of its subset")
+    if empty != b"":
+        fail("server: an empty request got a reply")
+    for k in ("track_prep", "ext_dp", "scan_cigar_dp", "run_walk"):
+        if launches[k] <= 0:
+            fail(f"server: kernel {k} was not launched by the requests")
+    print(f"[server] MapServer on the card, {threads} threads: replies to "
+          f"{len(subsets[0])} + {len(subsets[1])} proteins byte-identical "
+          f"to map_file on the host engine, the empty request empty; "
+          f"{wall:.2f} s for the three; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
 
 
 def phase_e2e(genome_mb, n_prot, threads):
-    """The default map, the striped-route map and the -O 0 map on both
-    engines, and the index built with the device sketch.  Returns each
-    path's launch counts: {"default" | "striped route" | "-O 0" |
-    "index": {kernel: launches}}."""
+    """The default map (PRE_CHUNK at its default, and again at 0), the
+    striped-route map and the -O 0 map on both engines, the server, and
+    the index built with the device sketch.  Returns each path's launch
+    counts: {"default" | "PRE_CHUNK 0" | "striped route" | "-O 0" |
+    "server" | "index": {kernel: launches}}."""
     import numpy as np
 
     from miniprot_tpu_torch.index import Index
@@ -1134,6 +1229,7 @@ def phase_e2e(genome_mb, n_prot, threads):
         k45 = ("track_prep", "ext_dp", "striped_cigar_dp", "cell_walk")
         gpu = _map(mi, faa, MapOpt(), "cuda", threads, k123)
         host = _map(mi, faa, MapOpt(), None, threads)
+        whole = _map(mi, faa, MapOpt(), "cuda", threads, k123, 0)
         os.environ["MINIPROT_TPU_CIG_IMPL"] = "striped"
         try:
             striped = _map(mi, faa, MapOpt(), "cuda", threads, k45)
@@ -1144,12 +1240,16 @@ def phase_e2e(genome_mb, n_prot, threads):
         gpu0 = _map(mi, faa, o0, "cuda", threads, k45)
         host0 = _map(mi, faa, o0, None, threads)
         profiler.enabled = False
+        srv_launches = phase_server(mi, faa, d, threads)
         mi_gpu, sk_wall, sk_stages, sk_launches = index_build(fa)
     if gpu["out"] != host["out"]:
         fail("GPU engine output differs from the host engine's")
     if gpu["out"].count("\n") < n_prot // 2:
         fail(f"too few output lines: {gpu['out'].count(chr(10))}")
     _report("default", gpu, host, threads)
+    if whole["out"] != host["out"]:
+        fail("GPU output at PRE_CHUNK 0 differs from the host engine's")
+    _report("PRE_CHUNK 0", whole, host, threads)
     if striped["out"] != host["out"]:
         fail("striped-route GPU output differs from the host engine's")
     _report("striped route", striped, host, threads)
@@ -1169,19 +1269,25 @@ def phase_e2e(genome_mb, n_prot, threads):
           f"(one process, {sk_launches['sketch_orf']} sketch_orf launches) "
           f"vs {t2 - t1:.1f} s host ({threads} processes); card build "
           + _stages_line(sk_wall, sk_stages), flush=True)
-    return {"default": gpu["launches"], "striped route": striped["launches"],
-            "-O 0": gpu0["launches"], "index": sk_launches}
+    return {"default": gpu["launches"], "PRE_CHUNK 0": whole["launches"],
+            "striped route": striped["launches"], "-O 0": gpu0["launches"],
+            "server": srv_launches, "index": sk_launches}
 
 
-def phase_maps(genome_mb, n_prot, threads):
+def phase_maps(genome_mb, n_prot, threads, pre_chunks):
     """The e2e workload's three GPU maps alone (no host maps, no kernel
-    phases), each with its proteins/s, the host seconds inside the
-    batches' launch(), align_rounds and the kernels' device time: the
-    comparison of two trees (--package) in one call."""
+    phases), at each PRE_CHUNK of ``pre_chunks`` (a tree without the
+    streaming producer maps once), each with its proteins/s, stage
+    split, collect waves against exposed wait, flush rounds and the
+    kernels' device time: the comparison of two trees (--package) in
+    one call."""
+    from miniprot_tpu_torch import pipeline
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt
     from miniprot_tpu_torch.sysutil import profiler
     from miniprot_tpu_torch.testgen import make_workload
+    if not hasattr(pipeline, "PRE_CHUNK"):
+        pre_chunks = [None]
     o0 = MapOpt()
     o0.go = 0
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
@@ -1191,26 +1297,30 @@ def phase_maps(genome_mb, n_prot, threads):
                       n_genes=n_prot, seed=11, n_ctg=N_CTG,
                       max_intron=20_000, rev_frac=0.5, fs_frac=0.1)
         mi = Index.build(fa, IdxOpt(), n_threads=threads)
+        # warm-up, not reported: the kernel library's build and the
+        # first map's allocations
+        _map(mi, faa, MapOpt(), "cuda", threads)
         profiler.enabled = True
-        for tag, opt, impl in (("default", MapOpt(), None),
-                               ("striped route", MapOpt(), "striped"),
-                               ("-O 0", o0, None)):
-            if impl:
-                os.environ["MINIPROT_TPU_CIG_IMPL"] = impl
-            try:
-                run = _map(mi, faa, opt, "cuda", threads)
-            finally:
-                os.environ.pop("MINIPROT_TPU_CIG_IMPL", None)
-            launch_s = run["stats"]["launch_s"]
-            busy = sum(run["kernel_ms"].values()) / 1e3
-            print(f"[maps {tag}] {run['n'] / run['wall']:.2f} proteins/s "
-                  f"({run['wall']:.2f} s); inside the batches' launch() "
-                  f"{launch_s:.3f} s"
-                  f"; align_rounds {run['stages'].get('align_rounds', 0):.3f}; "
-                  f"in collects {run['blocked']:.3f}; kernels {busy:.3f} s: "
-                  + ", ".join(f"{k} {v:.1f} ms"
-                              for k, v in sorted(run["kernel_ms"].items())),
-                  flush=True)
+        for chunk in pre_chunks:
+            for tag, opt, impl in (("default", MapOpt(), None),
+                                   ("striped route", MapOpt(), "striped"),
+                                   ("-O 0", o0, None)):
+                if impl:
+                    os.environ["MINIPROT_TPU_CIG_IMPL"] = impl
+                try:
+                    run = _map(mi, faa, opt, "cuda", threads,
+                               pre_chunk=chunk)
+                finally:
+                    os.environ.pop("MINIPROT_TPU_CIG_IMPL", None)
+                busy = sum(run["kernel_ms"].values()) / 1e3
+                print(f"[maps {tag}] {run['n'] / run['wall']:.2f} "
+                      f"proteins/s ({run['wall']:.2f} s); "
+                      + _stage_line(run)
+                      + f"; kernels {busy:.3f} s (busy share "
+                      f"{busy / run['wall']:.4f}): " + ", ".join(
+                          f"{k} {v:.1f} ms"
+                          for k, v in sorted(run["kernel_ms"].items())),
+                      flush=True)
 
 
 def main() -> None:
@@ -1224,6 +1334,9 @@ def main() -> None:
     ap.add_argument("--index-only", action="store_true",
                     help="only the e2e workload's --gpu-sketch index build, "
                     "twice, each with its stage split")
+    ap.add_argument("--pre-chunk", default=None, metavar="N[,N...]",
+                    help="with --maps-only: map at each of these PRE_CHUNK "
+                    "values (default: the tree's own)")
     ap.add_argument("--package", metavar="DIR",
                     help="import miniprot_tpu_torch from DIR (another "
                     "checkout, e.g. a parent commit's) instead of this one")
@@ -1252,7 +1365,9 @@ def main() -> None:
         print(f"[maps] miniprot_tpu_torch from "
               f"{os.path.dirname(os.path.dirname(kernels.__file__))}",
               flush=True)
-        phase_maps(args.genome_mb, args.proteins, args.threads)
+        phase_maps(args.genome_mb, args.proteins, args.threads,
+                   [int(v) for v in args.pre_chunk.split(",")]
+                   if args.pre_chunk else [None])
         print(f"[done] {time.perf_counter() - t_start:.1f} s")
         return
     if args.index_only:
@@ -1300,6 +1415,7 @@ def main() -> None:
     entries.append(phase_dp32(128, 1024, 128, 21))
     entries.append(phase_dp32(1024, 4096, 128, 22))
     entries.append(phase_sketch(12, args.genome_mb * 1_000_000 // N_CTG))
+    phase_flush_no_sync(23)
     runs = phase_e2e(args.genome_mb, args.proteins, args.threads)
     for e in entries:
         if "counter" in e:

@@ -107,7 +107,15 @@ def main(argv: list[str] | None = None) -> int:
     return _run(sys.argv[1:] if argv is None else argv)
 
 
-def _run(argv: list[str]) -> int:
+def load_for_server(argv: list[str]) -> tuple | int:
+    """Parse options and load the index like the CLI, but stop before
+    mapping: returns (index, mapopt, n_threads, device) for
+    miniprot_tpu_torch.server (device "cuda", or None with --no-gpu),
+    or an int exit code on a usage error."""
+    return _run(argv, server_parse=True)
+
+
+def _run(argv: list[str], server_parse: bool = False):
     from .sysutil import disable_numpy_thp
     disable_numpy_thp()
     device = None if "--no-gpu" in argv else "cuda"
@@ -290,7 +298,7 @@ def _run(argv: list[str]) -> int:
         from . import sysutil
         sysutil.error("%s", ex)
         return 1
-    if not pos or (len(pos) == 1 and fn_idx is None):
+    if not pos or (len(pos) == 1 and fn_idx is None and not server_parse):
         sys.stderr.write(USAGE)
         return 1
     try:
@@ -317,6 +325,8 @@ def _run(argv: list[str]) -> int:
     if len(pos) > 1:
         from . import sysutil
         sysutil.log("main", mi.print_stat(mo.max_occ))
+    if server_parse:  # miniprot_tpu_torch.server: the loaded state
+        return mi, mo, n_threads, device
     out = sys.stdout
     ckpt = None
     if resume and fn_out is None:

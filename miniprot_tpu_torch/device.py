@@ -9,9 +9,12 @@ regions and queries and dispatches them in shape-bucketed batches:
            MINIPROT_TPU_CIG_IMPL switch) kernels/nasw_cigar_striped
            (K4 + K5)
 
-Launches are asynchronous on the card's current stream; the host
-engine's share of the round (jobs routed to the host by design) runs
-while the card works, and flush_end collects.
+Launches are asynchronous on the card's current stream.  flush_begin
+launches every batch of a round, queues the copies of all their results
+to pinned host memory behind the kernels (the collect wave, one event
+per batch), and then runs the host engine's share of the round (jobs
+routed to the host by design) while the card works and the results
+travel; flush_end waits once, on the wave's last event, and decodes.
 
 Host routing (part of the algorithm, identical results, counted in
 n_host and, per reason, in host_reasons): ext jobs outside
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from .align import DpEnv
-from .kernels import resolve_device
+from .kernels import resolve_device, to_host
 from .kernels import nasw_cigar_scan as csk
 from .kernels import nasw_cigar_striped as cst
 from .kernels import nasw_ext as nk
@@ -171,8 +174,10 @@ class GpuExtEngine:
         self.host_reasons: dict[str, int] = {}
         self.host_dp_s = 0.0
         # host seconds spent inside the batches' launch() calls (upload,
-        # prep and kernel launches, and any wait for the card there)
+        # prep and kernel launches, and any wait for the card there), and
+        # decoding collected results (the CIGARs' run expansion)
         self.launch_s = 0.0
+        self.decode_s = 0.0
 
     # ---- request intake ----
 
@@ -291,13 +296,13 @@ class GpuExtEngine:
         job.result = (sc, ntl, aal)
         self.n_host += 1
 
-    def _collect(self, batch, handle):
-        from .sysutil import profiler
+    def _collect(self, batch, host):
+        """batch.collect of a prefetched copy, its seconds in decode_s."""
         t0 = time.monotonic()
         try:
-            return batch.collect(handle)
+            return batch.collect(host)
         finally:
-            profiler.add_device_block(time.monotonic() - t0)
+            self.decode_s += time.monotonic() - t0
 
     def _cig_classes(self, W: int):
         """(raw class, host-prepped class) for CIGAR jobs of class width
@@ -335,9 +340,9 @@ class GpuExtEngine:
         job.result = (sc, c)
         self.n_host += 1
 
-    def _decode_cig_one(self, cig_jobs, idxs, batch, handles) -> None:
+    def _decode_cig_one(self, cig_jobs, idxs, batch, host) -> None:
         from .sysutil import profiler
-        results = self._collect(batch, handles)
+        results = self._collect(batch, host)
         for k, r in zip(idxs, results):
             if r is None:
                 # the run-walk hit its round cap for this problem (an
@@ -374,8 +379,13 @@ class GpuExtEngine:
         def launch(idxs, batch):
             need = batch.tb_bytes()
             while pending and outstanding[0] + need > self.pending_tb_cap:
+                # a blocking collect outside the wave
                 o_idxs, o_batch, o_handles = pending.pop(0)
-                self._decode_cig_one(cig_jobs, o_idxs, o_batch, o_handles)
+                t0 = time.monotonic()
+                host = to_host(o_handles)
+                host.wait()
+                profiler.add_device_block(time.monotonic() - t0)
+                self._decode_cig_one(cig_jobs, o_idxs, o_batch, host)
                 outstanding[0] -= o_batch.tb_bytes()
             pending.append((idxs, batch, self._launch(batch)))
             outstanding[0] += need
@@ -432,17 +442,20 @@ class GpuExtEngine:
         return pending, host_jobs
 
     def flush_begin(self) -> "_Flight":
-        """Launch every batch of the current request set, then run the
-        host engine's share while the card works.  Returns the in-flight
-        state; call flush_end(flight) exactly once for the results."""
+        """Launch every batch of the current request set, start the
+        collect wave (every batch's results queued for host memory), then
+        run the host engine's share while the card works.  Returns the
+        in-flight state; call flush_end(flight) exactly once for the
+        results."""
         from .sysutil import profiler
-        fl = _Flight()
+        fl = _Flight(self.device)
         profiler.flush_rounds += 1
         fl.requests, self.requests = self.requests, []
         fl.ext_jobs, self.ext_jobs = self.ext_jobs, []
         fl.cig_jobs, self.cig_jobs = self.cig_jobs, []
-        fl.ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
-        fl.cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
+        cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        fl.begin_wave(ext_pending, cig_pending)
         t0 = time.monotonic()
         for i in ext_host:
             self._ext_host(fl.ext_jobs, i)
@@ -458,14 +471,15 @@ class GpuExtEngine:
         return fl
 
     def flush_end(self, fl: "_Flight") -> list:
-        """Collect the flight's batches and return results aligned with
-        its submit order."""
-        for chunk, batch, handle in fl.ext_pending:
-            for i, r in zip(chunk, self._collect(batch, handle)):
+        """Join the flight's collect wave, decode, and return results
+        aligned with its submit order.  A copy or decode error raises."""
+        fl.join()
+        for chunk, batch, host in fl.ext_wave:
+            for i, r in zip(chunk, self._collect(batch, host)):
                 fl.ext_jobs[i].result = r
-        for idxs, batch, handles in fl.cig_pending:
-            self._decode_cig_one(fl.cig_jobs, idxs, batch, handles)
-        fl.ext_pending = fl.cig_pending = None
+        for idxs, batch, host in fl.cig_wave:
+            self._decode_cig_one(fl.cig_jobs, idxs, batch, host)
+        fl.ext_wave = fl.cig_wave = None
         out = []
         for kind, ref in fl.requests:
             if kind == "ext":
@@ -488,31 +502,44 @@ def _cig_kind(batch) -> str:
 
 
 class _Flight:
-    """One in-flight flush: its requests/jobs snapshot and the launched
-    batches."""
+    """One in-flight flush: its requests/jobs snapshot and its collect
+    wave, the launched batches with their results on the way to host
+    memory."""
 
-    __slots__ = ("requests", "ext_jobs", "cig_jobs",
-                 "ext_pending", "cig_pending")
+    __slots__ = ("requests", "ext_jobs", "cig_jobs", "ext_wave",
+                 "cig_wave", "_span", "_joined")
 
+    def __init__(self, device):
+        self._joined = False
+        # timing events around the round's work on the card: from before
+        # its first launch to after its last result copy
+        self._span = None
+        if device.type == "cuda":
+            self._span = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            self._span[0].record()
 
-def pump_align_generators(gens: list, engine: GpuExtEngine) -> None:
-    """Advance align_region_steps generators in lockstep, batching their
-    DP requests through the engine.  Each generator yields a LIST of
-    requests per round and receives the matching list of results."""
-    waiting = {}
-    for gi, g in enumerate(gens):
-        try:
-            waiting[gi] = next(g)
-        except StopIteration:
-            pass
-    while waiting:
-        handles = {gi: [engine.submit(req) for req in reqs]
-                   for gi, reqs in waiting.items()}
-        results = engine.flush()
-        nxt = {}
-        for gi, hs in handles.items():
-            try:
-                nxt[gi] = gens[gi].send([results[h] for h in hs])
-            except StopIteration:
-                pass
-        waiting = nxt
+    def begin_wave(self, ext_pending, cig_pending) -> None:
+        """Queue the copies of every launched batch's results to host
+        memory (kernels.to_host), then the wave's closing event."""
+        self.ext_wave = [(i, b, to_host(h)) for i, b, h in ext_pending]
+        self.cig_wave = [(i, b, to_host(h)) for i, b, h in cig_pending]
+        if self._span is not None:
+            self._span[1].record()
+
+    def join(self) -> None:
+        """Wait once for the wave's last event (stream order: every copy
+        of the round has then landed); adds the wave's card seconds and
+        the driving thread's wait to the profiler."""
+        from .sysutil import profiler
+        if self._joined:
+            raise RuntimeError("flight joined twice")
+        self._joined = True
+        wave = 0.0
+        t0 = time.monotonic()
+        if self._span is not None:
+            self._span[1].synchronize()
+        exposed = time.monotonic() - t0
+        if self._span is not None:
+            wave = self._span[0].elapsed_time(self._span[1]) / 1e3
+        profiler.add_device_block(wave, exposed=exposed)

@@ -235,3 +235,47 @@ def require(t: torch.Tensor, dtype, ndim: int, name: str,
         raise ValueError(f"{name}: expected a contiguous CUDA {dtype} "
                          f"tensor of rank {ndim}, {align}-byte aligned, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+class HostCopy:
+    """A batch's result tensors in host memory: pinned copies queued on
+    the launch stream behind its kernels, readable once ``event`` (the
+    copies' completion) has passed.  CPU results carry no event."""
+
+    __slots__ = ("tensors", "event")
+
+    def __init__(self, tensors: tuple, event=None):
+        self.tensors = tensors
+        self.event = event
+
+    def wait(self) -> None:
+        """Block until the copies have landed."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+    def arrays(self) -> list:
+        """The results as numpy arrays, after waiting for the copies."""
+        self.wait()
+        return [t.numpy() for t in self.tensors]
+
+
+def to_host(handles) -> HostCopy:
+    """Start copying a launch's result tensor(s) to host memory without
+    waiting: on the card, non-blocking copies into pinned tensors from
+    torch's caching host allocator (a block is reused only after the
+    copies recorded on it have completed) and one event behind them.
+    A HostCopy passes through unchanged."""
+    if isinstance(handles, HostCopy):
+        return handles
+    if isinstance(handles, torch.Tensor):
+        handles = (handles,)
+    if not handles[0].is_cuda:
+        return HostCopy(tuple(handles))
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in handles)
+    for h, t in zip(host, handles):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return HostCopy(host, event)

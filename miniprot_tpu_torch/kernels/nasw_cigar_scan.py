@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from .. import tables as _tables
-from . import LAUNCHES, call, require, resolve_device, stream_ptr, warps_for
+from . import (LAUNCHES, call, require, resolve_device, stream_ptr, to_host,
+               warps_for)
 from .nasw_ext import _upload, prep_tracks
 
 NEG16 = -32768           # int16 saturation floor
@@ -530,7 +531,7 @@ class _ScanBatch(TrackBatch):
 
     def collect(self, handles):
         from .. import native
-        states, counts, fi, fj, score = (t.cpu().numpy() for t in handles)
+        states, counts, fi, fj, score = to_host(handles).arrays()
         counts = counts.view(np.uint16)
         out = []
         for b in range(self.n):

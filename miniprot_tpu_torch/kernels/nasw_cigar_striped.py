@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import LAUNCHES, call, require, stream_ptr
+from . import LAUNCHES, call, require, stream_ptr, to_host
 from .nasw_cigar_scan import (SCAN_WIDTHS, SMALL_CAPACITY, HostTracks,
                               RawTracks, TrackBatch, _left, _row_terms, _sadd,
                               _ssub, _state_nibble)
@@ -408,7 +408,7 @@ class _StripedBatch(TrackBatch):
 
     def collect(self, handles):
         from .. import native
-        states, fi, fj, score = (t.cpu().numpy() for t in handles)
+        states, fi, fj, score = to_host(handles).arrays()
         return [(int(score[b]),
                  native.cigar_from_states(states[b], int(fi[b]), int(fj[b])))
                 for b in range(self.n)]
@@ -443,7 +443,7 @@ class Dp32Batch(CigarBatch):
 
     def collect(self, handles):
         from .. import native
-        tb, score = (t.cpu().numpy() for t in handles)
+        tb, score = to_host(handles).arrays()
         out = []
         for b in range(self.n):
             nl, al = self.dims[b]

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 
 from .. import tables
-from . import LAUNCHES, call, require, resolve_device, stream_ptr
+from . import (LAUNCHES, call, require, resolve_device, stream_ptr,
+               to_host)
 
 NEG = -(1 << 29)
 B_LANES = 128           # default problems per batch (the engine's unit)
@@ -683,7 +684,9 @@ class ExtBatch:
                       _upload(self.prof[:n], dev), _opts(self))
 
     def collect(self, handle):
-        out = handle.cpu().numpy()
+        """[(score, genome end + 1, query end + 1)] per problem, from
+        launch()'s handle or its to_host copy."""
+        (out,) = to_host(handle).arrays()
         return [(int(out[b, 0]), int(out[b, 1]) + 1, int(out[b, 2]) + 1)
                 for b in range(self.n)]
 

@@ -186,6 +186,18 @@ def seed_anchors_py(mi: Index, seq: np.ndarray, opt: MapOpt) -> np.ndarray:
     return (mi.kb[indices].astype(np.uint64) << np.uint64(32)) | qpos
 
 
+# scratch slots of the native engine above this size are released after
+# each query
+SCRATCH_TRIM_BYTES = 64 << 20
+
+
+def trim_scratch() -> None:
+    """Release the calling thread's native scratch slots above
+    SCRATCH_TRIM_BYTES (each thread has its own; an exiting thread's
+    are freed)."""
+    native._lib.mx_scratch_trim(SCRATCH_TRIM_BYTES)
+
+
 def map_query(mi: Index, seq: bytes | np.ndarray, opt: MapOpt,
               env: DpEnv | None = None, dbg: dict | None = None,
               anchors: np.ndarray | None = None) -> list[Region]:
@@ -253,7 +265,7 @@ def map_query(mi: Index, seq: bytes | np.ndarray, opt: MapOpt,
                          dbg_more_dp=bool(dbg.get("more_dp")))
         regs = finish_align(mi, opt, regs)
     # don't let one pathological DP pin its traceback scratch forever
-    native._lib.mx_scratch_trim(64 << 20)
+    trim_scratch()
     return regs
 
 

@@ -38,6 +38,7 @@
 #include <stdlib.h>
 #include <string.h>
 #include <assert.h>
+#include <pthread.h>
 
 #define MX_EXPORT __attribute__((visibility("default")))
 
@@ -995,42 +996,80 @@ static int32_t dp_backtrack(const int16_t *tb, int32_t slen, int32_t nl, int32_t
  * cigar:   caller buffer with room for at least nl + al + 16 entries.
  */
 
-/* grow-only per-process scratch for the DP temporaries: mapping makes
- * tens of DP calls per query and per-call malloc + first-touch was a
- * measurable fraction of host map time.  The DP path is single-threaded
- * within a process (mapping parallelism is process-based), so plain
- * statics are safe. */
-static void *mx_scr[28];
-static size_t mx_scr_cap[28];
+/* grow-only scratch for the DP temporaries: mapping makes tens of DP
+ * calls per query and per-call malloc + first-touch was a measurable
+ * fraction of host map time.  Each thread that enters the engine has
+ * its own slots (and mx_sort_u64_lsd's buffer): the GPU pipeline runs
+ * seeding and chaining on a producer thread while its pump runs host
+ * DPs, so no slot may be shared between threads.  A thread's slots are
+ * freed when it exits. */
+#define MX_NSLOT 28
+typedef struct {
+	void *p[MX_NSLOT];
+	size_t cap[MX_NSLOT];
+	uint64_t *sbuf;          /* mx_sort_u64_lsd's buffer */
+	int64_t sbuf_cap;
+} mx_scr_t;
 
-static void mx_scr_free(int slot)
+static _Thread_local mx_scr_t *mx_tscr;
+static pthread_key_t mx_scr_key;
+static pthread_once_t mx_scr_once = PTHREAD_ONCE_INIT;
+
+static void mx_scr_release(void *v)
 {
-	free(mx_scr[slot]);
-	mx_scr[slot] = 0, mx_scr_cap[slot] = 0;
+	mx_scr_t *s = (mx_scr_t*)v;
+	int i;
+	for (i = 0; i < MX_NSLOT; ++i) free(s->p[i]);
+	free(s->sbuf);
+	free(s);
+}
+
+static void mx_scr_key_init(void)
+{
+	pthread_key_create(&mx_scr_key, mx_scr_release);
+}
+
+/* the calling thread's scratch set, made on its first use (0 when out
+ * of memory) */
+static mx_scr_t *mx_scr_get(void)
+{
+	if (!mx_tscr) {
+		pthread_once(&mx_scr_once, mx_scr_key_init);
+		mx_tscr = (mx_scr_t*)calloc(1, sizeof(mx_scr_t));
+		if (mx_tscr) pthread_setspecific(mx_scr_key, mx_tscr);
+	}
+	return mx_tscr;
 }
 
 static void *mx_scratch(int slot, size_t size)
 {
-	if (mx_scr_cap[slot] < size) {
+	mx_scr_t *s = mx_scr_get();
+	if (!s) return 0;
+	if (s->cap[slot] < size) {
 		size_t cap = size + size / 2 + 256;
 		cap = (cap + 63) & ~(size_t)63;   /* zmm state arrays deref aligned */
-		mx_scr_free(slot);
-		mx_scr[slot] = aligned_alloc(64, cap);
-		mx_scr_cap[slot] = mx_scr[slot] ? cap : 0;
+		free(s->p[slot]);
+		s->p[slot] = aligned_alloc(64, cap);
+		s->cap[slot] = s->p[slot] ? cap : 0;
 	}
-	return mx_scr[slot];
+	return s->p[slot];
 }
 
-/* Release scratch slots above a byte threshold.  The grow-only slots
- * otherwise pin the high-water mark (one 200kb-intron x 1000aa
- * traceback is ~0.4 GB) for the process lifetime; the mapper trims
- * between queries so RSS tracks the typical, not the worst, DP. */
+/* Release the calling thread's scratch slots above a byte threshold.
+ * The grow-only slots otherwise pin the high-water mark (one
+ * 200kb-intron x 1000aa traceback is ~0.4 GB) for the thread's
+ * lifetime; the mapper trims between queries so RSS tracks the
+ * typical, not the worst, DP. */
 MX_EXPORT void mx_scratch_trim(int64_t threshold)
 {
+	mx_scr_t *s = mx_tscr;
 	int i;
-	for (i = 0; i < (int)(sizeof(mx_scr) / sizeof(mx_scr[0])); ++i)
-		if (mx_scr_cap[i] > (size_t)threshold)
-			mx_scr_free(i);
+	if (!s) return;
+	for (i = 0; i < MX_NSLOT; ++i)
+		if (s->cap[i] > (size_t)threshold) {
+			free(s->p[i]);
+			s->p[i] = 0, s->cap[i] = 0;
+		}
 }
 
 
@@ -2611,9 +2650,7 @@ MX_EXPORT int64_t mx_write_cs(const uint8_t *nt, int64_t nt_len,
  * the permutation-sensitive case is only the 128-bit pair sort. */
 MX_EXPORT int64_t mx_sort_u64_lsd(uint64_t *a, int64_t n)
 {
-	static uint64_t *sbuf;        /* grow-only; DP/sort path is
-	                                 single-threaded per process */
-	static int64_t sbuf_cap;
+	mx_scr_t *s = mx_scr_get();
 	int64_t cnt[256], pos[256];
 	int64_t i;
 	int b;
@@ -2621,12 +2658,13 @@ MX_EXPORT int64_t mx_sort_u64_lsd(uint64_t *a, int64_t n)
 	uint64_t *buf, *src, *dst;
 	if (n <= 1) return n;
 	if (n <= MX_RS_MIN) { ins_sort_u64(a, n); return n; }
-	if (sbuf_cap < n) {
-		free(sbuf);
-		sbuf = (uint64_t *)malloc((n + n / 2) * sizeof(uint64_t));
-		sbuf_cap = sbuf ? n + n / 2 : 0;
+	if (!s) return -1;
+	if (s->sbuf_cap < n) {
+		free(s->sbuf);
+		s->sbuf = (uint64_t *)malloc((n + n / 2) * sizeof(uint64_t));
+		s->sbuf_cap = s->sbuf ? n + n / 2 : 0;
 	}
-	buf = sbuf;
+	buf = s->sbuf;
 	if (buf == 0) return -1;
 	for (i = 0; i < n; ++i) orx |= a[i], andx &= a[i];
 	src = a, dst = buf;
@@ -2790,11 +2828,27 @@ MX_EXPORT void mx_bucket_shift(int64_t *ki, int64_t n)
  * scatter, index.c:71-95): every bucket ends fully sorted ascending +
  * deduped, which equals the reference's part-order concatenation of
  * sorted runs because block ranges are disjoint and ascending across
- * strand parts. */
-#define MX_BB_SLOT 26
+ * strand parts.  The build's state is process-wide: one build at a
+ * time, its calls from any one thread. */
 static int64_t *mx_bb_off;      /* per-part (npart+1) partition offsets */
+static uint64_t *mx_bb_buf;     /* the parts' entries, part-major */
+static size_t mx_bb_buf_cap;    /* bytes */
 static int64_t mx_bb_nparts, mx_bb_cap_parts, mx_bb_total;
 static int mx_bb_bucket_bits, mx_bb_bpp_bits;
+
+/* grow the entry buffer to at least size bytes, keeping its contents
+ * (1.5x over-allocation, so the copies amortize to O(total)) */
+static int mx_bb_grow(size_t size)
+{
+	uint64_t *t;
+	size_t cap;
+	if (mx_bb_buf_cap >= size) return 0;
+	cap = size + size / 2 + 256;
+	t = (uint64_t*)realloc(mx_bb_buf, cap);
+	if (!t) return -1;
+	mx_bb_buf = t, mx_bb_buf_cap = cap;
+	return 0;
+}
 
 MX_EXPORT void mx_bb_reset(int64_t n_bucket, int64_t reserve)
 {
@@ -2809,10 +2863,12 @@ MX_EXPORT void mx_bb_reset(int64_t n_bucket, int64_t reserve)
 	 * buffer allocated for a different n_bucket would overflow it */
 	free(mx_bb_off);
 	mx_bb_off = 0, mx_bb_cap_parts = 0;
+	free(mx_bb_buf);
+	mx_bb_buf = 0, mx_bb_buf_cap = 0;
 	/* pre-reserve the entry buffer (caller estimates from genome
 	 * length): growth copies + refaults on multi-100MB reallocs are
 	 * expensive on fault-slow virtualized hosts */
-	if (reserve > 0) mx_scratch(MX_BB_SLOT, (size_t)reserve * 8);
+	if (reserve > 0) mx_bb_grow((size_t)reserve * 8);
 }
 
 MX_EXPORT int32_t mx_bb_add(const uint64_t *a, int64_t n)
@@ -2828,23 +2884,9 @@ MX_EXPORT int32_t mx_bb_add(const uint64_t *a, int64_t n)
 		if (!t) return -1;
 		mx_bb_off = t, mx_bb_cap_parts = cap;
 	}
-	/* grow the entry buffer; mx_scratch over-allocates 1.5x so
-	 * growth-copy churn stays amortized */
-	{
-		size_t need = (size_t)(mx_bb_total + n) * 8;
-		if (mx_scr_cap[MX_BB_SLOT] < need) {
-			/* grow preserving contents (mx_scratch over-allocates
-			 * 1.5x, so the copies amortize to O(total)) */
-			uint64_t *old = (uint64_t*)mx_scr[MX_BB_SLOT];
-			size_t olen = (size_t)mx_bb_total * 8;
-			mx_scr[MX_BB_SLOT] = 0, mx_scr_cap[MX_BB_SLOT] = 0;
-			if (!mx_scratch(MX_BB_SLOT, need)) { free(old); return -1; }
-			if (old) memcpy(mx_scr[MX_BB_SLOT], old, olen);
-			free(old);
-		}
-	}
+	if (mx_bb_grow((size_t)(mx_bb_total + n) * 8) < 0) return -1;
 	off = mx_bb_off + mx_bb_nparts * (npart + 1);
-	dst = (uint64_t*)mx_scr[MX_BB_SLOT] + mx_bb_total;
+	dst = mx_bb_buf + mx_bb_total;
 	memset(off, 0, (size_t)(npart + 1) * 8);
 	for (i = 0; i < n; ++i) ++off[(a[i] >> shift) + 1];
 	for (q = 1; q <= npart; ++q) off[q] += off[q - 1];
@@ -2870,7 +2912,7 @@ MX_EXPORT int64_t mx_bb_finish(int64_t *ki, int64_t n_bucket, uint32_t *kb)
 	int64_t q, w = 0, g = 0, ip;
 	int64_t *lst = (int64_t*)malloc((size_t)nbpp * 2 * 8);
 	int64_t *pstart;   /* per-part start offset in the entry buffer */
-	const uint64_t *buf = (const uint64_t*)mx_scr[MX_BB_SLOT];
+	const uint64_t *buf = mx_bb_buf;
 	(void)n_bucket;
 	pstart = (int64_t*)malloc((size_t)(mx_bb_nparts > 0 ? mx_bb_nparts : 1) * 8);
 	if (!lst || !pstart) { free(lst); free(pstart); return -1; }
@@ -2923,7 +2965,8 @@ MX_EXPORT int64_t mx_bb_finish(int64_t *ki, int64_t n_bucket, uint32_t *kb)
 	free(pstart);
 	free(mx_bb_off);
 	mx_bb_off = 0, mx_bb_cap_parts = 0, mx_bb_nparts = 0, mx_bb_total = 0;
-	mx_scr_free(MX_BB_SLOT);
+	free(mx_bb_buf);
+	mx_bb_buf = 0, mx_bb_buf_cap = 0;
 	return w;
 }
 

@@ -81,27 +81,51 @@ def _make_pool(mi: Index, opt: MapOpt, n_workers: int):
         return ctx.Pool(n_workers)
 
 
+def _put(q, item, stop) -> None:
+    """q.put(item), giving up once ``stop`` is set: a producer thread
+    whose consumer has gone never blocks for ever on a full queue."""
+    import queue as _q
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return
+        except _q.Full:
+            pass
+
+
 class _Prefetcher:
     """Read batch N+1 while batch N maps (the kt_pipeline analog,
-    kthread.c:97-159)."""
+    kthread.c:97-159).  A read error (a malformed or truncated input) is
+    raised by get(); close() ends the reader thread."""
 
     def __init__(self, reader: BatchReader, chunk_size: int):
         import queue as _q
         import threading
         self._q: "_q.Queue" = _q.Queue(maxsize=1)
+        self._stop = threading.Event()
 
         def run():
-            while True:
-                b = reader.read_batch(chunk_size)
-                self._q.put(b)
-                if not b:
-                    return
+            try:
+                while not self._stop.is_set():
+                    b = reader.read_batch(chunk_size)
+                    _put(self._q, b, self._stop)
+                    if not b:
+                        return
+            except Exception as e:
+                _put(self._q, e, self._stop)
 
         self._t = threading.Thread(target=run, daemon=True)
         self._t.start()
 
     def get(self):
-        return self._q.get()
+        b = self._q.get()
+        if isinstance(b, Exception):
+            raise b
+        return b
+
+    def close(self) -> None:
+        self._stop.set()
+        self._t.join()
 
 
 def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
@@ -151,7 +175,9 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
         from .device import GpuExtEngine
         engine = GpuExtEngine(opt, device)
     n_workers = max(1, min(n_threads, os.cpu_count() or 1))
+    profiler.start("pool_start")
     pool = _make_pool(mi, opt, n_workers) if n_workers > 1 else None
+    profiler.stop("pool_start")
     pre = _Prefetcher(reader, opt.mini_batch_size)
     try:
         batch_idx = -1
@@ -187,6 +213,7 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
             from . import sysutil
             sysutil.log("map_file", "mapped %d sequences", len(batch))
     finally:
+        pre.close()
         profiler.stop("map")
         if engine is not None:
             from . import sysutil
@@ -206,6 +233,7 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
                              host_reasons=dict(engine.host_reasons),
                              host_dp_s=engine.host_dp_s,
                              launch_s=engine.launch_s,
+                             decode_s=engine.decode_s,
                              peak_pending_tb=engine.peak_pending_tb)
         if ckpt_f is not None:
             ckpt_f.close()
@@ -215,41 +243,151 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
     return n_mapped
 
 
+# pre_align streaming (port of miniprot_tpu.pipeline's constants of the
+# same names): queries per chunk that the producer hands the align pump
+# (0 = the whole mini-batch in one chunk), and the number of active
+# generators the pump bundles before a flush round while chunks are
+# still coming (smaller early rounds would fragment the batches).
+# PRE_CHUNK is chosen from paired runs on the card (PERF.md section 5):
+# 256 read faster than 0 on every map.
+PRE_CHUNK = 256
+MIN_ACTIVE_GENS = 512
+# queued chunks the producer may run ahead of the pump
+_READY_CHUNKS = 4
+
+
 def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                   pool=None) -> list:
     """Map one mini-batch with device-batched alignment DPs; returns
     [(rec, seq, final_regs), ...] in batch order (port of
     miniprot_tpu.pipeline.map_batch_tpu).
 
-    Seed/chain/refine (pre_align) run for the whole mini-batch first (on
-    the pool when there is one); then every region's alignment generator
-    advances in lockstep through the engine, one flush round per step.
+    Seed/chain/refine (pre_align) run on a producer thread, in chunks of
+    PRE_CHUNK queries (on the pool when there is one), while the align
+    pump runs flush rounds for the chunks already produced: each
+    region's align_region_steps generator starts as its chunk arrives,
+    and every round advances all active generators through the engine.
     A generator's results do not depend on which round it joins (the
-    per-problem DP is exact whatever the batch), so the output is
-    byte-identical to the host engine's."""
+    per-problem DP is exact whatever the batch), and chunks arrive in
+    input order from the one producer, so the output is byte-identical
+    to the host engine's at every chunking.  A producer error is raised
+    here."""
+    import copy
+    import queue as _q
+    import threading
+    import time
+
     from .align import align_region_steps
-    from .device import pump_align_generators
-    from .mapper import finish_align, pre_align
+    from .mapper import finish_align, pre_align, trim_scratch
     from .sysutil import profiler
 
-    profiler.start("pre_align")
-    if pool is not None:
-        pre = pool.map(_worker_pre_align, [r.seq for r in batch],
-                       chunksize=max(1, len(batch) // 32))
-    else:
-        pre = [pre_align(mi, np.frombuffer(r.seq, np.uint8), opt)
-               for r in batch]
-    profiler.stop("pre_align")
-    profiler.start("align_rounds")
+    ready: _q.Queue = _q.Queue(maxsize=_READY_CHUNKS)
+    chunk = PRE_CHUNK if PRE_CHUNK > 0 else max(1, len(batch))
+    # pre_align sets and restores a flag of the options it is given: the
+    # in-process producer works on its own copy of them
+    pre_opt = copy.copy(opt)
+
+    # set when the pump stops early (an error): the producer ends after
+    # its current chunk, never blocked on a full queue
+    stop = threading.Event()
+
+    def producer() -> None:
+        try:
+            for c0 in range(0, len(batch), chunk):
+                if stop.is_set():
+                    return
+                ch = batch[c0:c0 + chunk]
+                t0 = time.monotonic()
+                if pool is not None:
+                    pre = pool.map(_worker_pre_align, [r.seq for r in ch],
+                                   chunksize=max(1, len(ch) // 32))
+                else:
+                    pre = [pre_align(mi, np.frombuffer(r.seq, np.uint8),
+                                     pre_opt) for r in ch]
+                profiler.add_stage("pre_align", time.monotonic() - t0)
+                _put(ready, (ch, pre), stop)
+            _put(ready, None, stop)
+        except BaseException as e:   # raised in the pump, never hangs it
+            _put(ready, ("error", e), stop)
+
     per_query: list = []
     gens: list = []
-    for rec, (regs, ext) in zip(batch, pre):
-        seq = np.frombuffer(rec.seq, dtype=np.uint8)
-        per_query.append((rec, seq, regs))
-        gens.extend(align_region_steps(env, opt, mi, len(seq), seq, r, el, er)
-                    for r, (el, er) in zip(regs, ext))
-    pump_align_generators(gens, engine)
-    profiler.stop("align_rounds")
+    active: dict[int, list] = {}
+    waited = [0.0]    # seconds the pump sat blocked on the queue
+
+    def prime(ch, pre, into: dict) -> None:
+        for rec, (regs, ext) in zip(ch, pre):
+            seq = np.frombuffer(rec.seq, dtype=np.uint8)
+            per_query.append((rec, seq, regs))
+            for r, (el, er) in zip(regs, ext):
+                g = align_region_steps(env, opt, mi, len(seq), seq, r,
+                                       el, er)
+                gens.append(g)
+                try:
+                    into[len(gens) - 1] = next(g)
+                except StopIteration:
+                    pass
+
+    def absorb(into: dict, floor: int) -> bool:
+        """Start the generators of every chunk produced so far, waiting
+        for more while ``into`` holds fewer than ``floor``; False once
+        the producer is done."""
+        while True:
+            t0 = time.monotonic()
+            try:
+                item = ready.get(block=len(into) < floor)
+            except _q.Empty:
+                return True
+            finally:
+                waited[0] += time.monotonic() - t0
+            if item is None:
+                return False
+            if item[0] == "error":
+                raise item[1]
+            prime(*item, into)
+
+    thread = threading.Thread(target=producer, daemon=True,
+                              name="pre-align-producer")
+    t_pump = time.monotonic()
+    thread.start()
+    producing = True
+    try:
+        while True:
+            # absorb chunks: wait while under the bundling floor, take
+            # what is there otherwise
+            if producing:
+                producing = absorb(active, max(1, MIN_ACTIVE_GENS))
+            if not active:
+                if producing:
+                    continue
+                break
+            handles = {gi: [engine.submit(req) for req in reqs]
+                       for gi, reqs in active.items()}
+            fl = engine.flush_begin()
+            # chunks that arrived meanwhile start while the card works;
+            # their generators join the next round
+            fresh: dict[int, list] = {}
+            if producing:
+                producing = absorb(fresh, 0)
+            results = engine.flush_end(fl)
+            nxt: dict[int, list] = {}
+            for gi, hs in handles.items():
+                try:
+                    nxt[gi] = gens[gi].send([results[h] for h in hs])
+                except StopIteration:
+                    pass
+            nxt.update(fresh)
+            active = nxt
+    finally:
+        # no producer outlives its batch
+        stop.set()
+        thread.join()
+    profiler.add_stage("pre_align_wait", waited[0])
+    profiler.add_stage("align_rounds",
+                       time.monotonic() - t_pump - waited[0])
+    # release the large scratch slots of the pump's host DPs, as
+    # map_query does after each of its queries
+    trim_scratch()
     profiler.start("finish_align")
     done = [(rec, seq, finish_align(mi, opt, regs))
             for rec, seq, regs in per_query]
@@ -259,5 +397,9 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
 
 def _map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                    id_counter, out, pool=None) -> None:
-    for rec, seq, regs in map_batch_gpu(mi, opt, env, engine, batch, pool):
+    from .sysutil import profiler
+    done = map_batch_gpu(mi, opt, env, engine, batch, pool)
+    profiler.start("emit")
+    for rec, seq, regs in done:
         _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
+    profiler.stop("emit")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import resource
 import sys
+import threading
 import time
 
 verbose = 3
@@ -70,11 +71,20 @@ class Profiler:
         self.cells_device_cig_small = 0  # of those: small class (al<=32)
         self.n_dp_host = 0
         self.n_dp_device = 0
-        # wall time the driving thread spent blocked in device collects,
-        # and the count of engine flush rounds
-        self.device_blocked_s = 0.0
+        # collect-wave span: each flush round's seconds on the card's
+        # clock from before its first launch to after its last result
+        # copy (the host's packing between launches included, so not all
+        # of it is work on the card), plus the waits of collects made
+        # outside a wave (the planes-cap drain)
+        self.wave_span_s = 0.0
+        # the part of those seconds the driving thread actually waited
+        # (the wave's join and the drain); the rest ran behind host work
+        self.device_exposed_s = 0.0
         self.flush_rounds = 0
         self._open: dict[str, float] = {}
+        # the pre_align producer thread adds its stage seconds beside the
+        # pump's stages: stage updates take this lock
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
         """Zero every counter and stage timer; ``enabled`` is kept."""
@@ -88,8 +98,13 @@ class Profiler:
 
     def stop(self, stage: str) -> None:
         if self.enabled and stage in self._open:
-            self.stages[stage] = (self.stages.get(stage, 0.0)
-                                  + time.monotonic() - self._open.pop(stage))
+            self.add_stage(stage, time.monotonic() - self._open.pop(stage))
+
+    def add_stage(self, stage: str, dt: float) -> None:
+        """Add ``dt`` seconds to ``stage`` (any thread)."""
+        if self.enabled:
+            with self._lock:
+                self.stages[stage] = self.stages.get(stage, 0.0) + dt
 
     # cell counting is always on (two integer adds per DP call): the
     # host/device cell split is a first-class product metric (what
@@ -110,9 +125,13 @@ class Profiler:
         else:
             self.cells_device_ext += cells
 
-    def add_device_block(self, dt: float) -> None:
-        """dt: seconds the driving thread waited on a device collect."""
-        self.device_blocked_s += dt
+    def add_device_block(self, dt: float,
+                         exposed: float | None = None) -> None:
+        """dt: a collect wave's span (or a blocking collect's wait);
+        exposed: the seconds of it the driving thread waited, ``dt``
+        when left out (a blocking collect)."""
+        self.wave_span_s += dt
+        self.device_exposed_s += dt if exposed is None else exposed
 
     def device_fraction(self) -> float:
         """Fraction of DP cells evaluated on the device (padded batch
@@ -135,7 +154,10 @@ class Profiler:
             sys.stderr.write(
                 f"[P::dp_device] {self.n_dp_device} DPs, "
                 f"{self.cells_device / 1e9:.3f} Gcells (padded batches), "
-                f"{self.device_blocked_s:.3f} s blocked in collects\n")
+                f"{self.flush_rounds} flush rounds; collect waves span "
+                f"{self.wave_span_s:.3f} s (first launch to last result "
+                "copy, host packing between launches included), the "
+                f"driving thread waited {self.device_exposed_s:.3f} s\n")
         self._report_kernel_launches()
 
     @staticmethod

@@ -71,6 +71,43 @@ def orf_strand(rng, n: int, mean_run: float, p_n: float = 0.0002) -> np.ndarray:
     return seq
 
 
+def text_homolog(rng, al: int, nl: int, mut_rate: float = 0.1):
+    """(genome window, protein) as ASCII arrays: a random protein of al
+    residues spelled in codons, mut_rate of them substituted, then
+    random bases up to nl."""
+    T = tables.get_tables(1)
+    asq = rng.choice(np.frombuffer(AA20.encode(), np.uint8), al)
+    rev = np.full(22, -1, np.int64)
+    for c in range(63, -1, -1):
+        rev[T.codon[c]] = c
+    cod = rev[T.aa20[asq]]
+    mut = rng.random(al) < mut_rate
+    cod[mut] = rng.integers(0, 64, int(mut.sum()))
+    nt4 = np.stack([(cod >> 4) & 3, (cod >> 2) & 3, cod & 3], 1).reshape(-1)
+    tail = rng.integers(0, 4, max(0, nl - len(nt4)))
+    nt4 = np.concatenate([nt4, tail])[:nl]
+    return np.frombuffer(b"ACGT", np.uint8)[nt4].copy(), asq.copy()
+
+
+def submit_round(engine, rng, n_ext: int, n_cig: int):
+    """Submit one flush round of a DP engine: n_ext ext jobs (left and
+    right in turn, in the device buckets) and one request of n_cig
+    CIGAR jobs of both scan classes.  Returns (ext, cig): the jobs as
+    (window, protein, left) and (window, protein)."""
+    ext, cig = [], []
+    for k in range(n_ext):
+        ns, aa = text_homolog(rng, int(rng.integers(30, 120)),
+                              int(rng.integers(1100, 3000)))
+        ext.append((ns, aa, k % 2 == 1))
+        engine.submit(("ext", ns, aa, None, engine.opt.io, k % 2 == 1))
+    for k in range(n_cig):
+        cig.append(text_homolog(rng,
+                                int(rng.integers(5, 33 if k % 2 else 120)),
+                                int(rng.integers(520, 1500))))
+    engine.submit(("cigars", [(ns, aa, None) for ns, aa in cig]))
+    return ext, cig
+
+
 def make_workload(path_fa: str, path_faa: str, *, genome_len: int = 2_000_000,
                   n_genes: int = 100, seed: int = 42, n_ctg: int = 2,
                   max_exons: int = 8, max_intron: int = 20000,

@@ -738,3 +738,78 @@ def test_run_walk_kernel_matches_plain(cuda_card, W, n, nl_pad, planes):
                  for i, j in zip(fi.tolist(), fj.tolist())}
     assert ends == ({"cap", "i<2"} if planes == "scan"
                     else {"cap", "i<2", "j<0"})
+
+
+def test_flush_begin_does_not_synchronize(cuda_card):
+    """A whole flush_begin of a real round (K7, K1, K2 and K3 launches,
+    the collect wave's copies and events, the host DPs) runs under
+    torch.cuda.set_sync_debug_mode("error"); flush_end then gives the
+    host C engine's results."""
+    from miniprot_tpu_torch.device import GpuExtEngine
+    from miniprot_tpu_torch.native import (DPF_CIGAR, DPF_EXT_LEFT,
+                                           DPF_EXT_RIGHT)
+    from miniprot_tpu_torch.options import MapOpt
+    from miniprot_tpu_torch.testgen import submit_round
+    engine = GpuExtEngine(MapOpt(), cuda_card)
+    rng = np.random.default_rng(12)
+    submit_round(engine, rng, 24, 24)
+    engine.flush()                 # build the library, warm the allocators
+    ext, cig = submit_round(engine, rng, 24, 24)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fl = engine.flush_begin()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res = engine.flush_end(fl)
+    assert engine.batches["ext"] >= 2 and engine.batches["cig"] >= 2
+    assert engine.batches["cig_small"] >= 2
+    for (ns, aa, left), r in zip(ext, res):
+        sc, ntl, aal, _ = engine.env.dp(
+            ns, aa, DPF_EXT_LEFT if left else DPF_EXT_RIGHT)
+        assert r == (sc, ntl, aal)
+    for (ns, aa), (gsc, gcig) in zip(cig, res[-1]):
+        sc, _, _, c = engine.env.dp(ns, aa, DPF_CIGAR)
+        assert gsc == sc and np.array_equal(gcig, c)
+
+
+def test_server_round_trip_on_card(cuda_card, tmp_path):
+    """MapServer on the card answers with map_file's bytes (the host
+    engine's), twice, and an empty request with nothing; each request
+    launches the kernels a map_file on the card launches for the same
+    input."""
+    import io
+    import threading
+
+    from miniprot_tpu_torch import kernels, server
+    from miniprot_tpu_torch.index import Index
+    from miniprot_tpu_torch.options import IdxOpt, MapOpt
+    from miniprot_tpu_torch.pipeline import map_file
+    from miniprot_tpu_torch.testgen import make_workload
+    fa, faa = str(tmp_path / "g.fa"), str(tmp_path / "q.faa")
+    make_workload(fa, faa, genome_len=400_000, n_genes=12, seed=4, n_ctg=2,
+                  max_intron=1500, rev_frac=0.5)
+    mi = Index.build(fa, IdxOpt())
+    opt = MapOpt()
+    opt.bw = opt.max_intron = 4000
+    want = io.StringIO()
+    map_file(mi, faa, opt, n_threads=1, out=want, device=None)
+    kernels.reset_launch_counts()
+    map_file(mi, faa, opt, n_threads=2, out=io.StringIO(), device="cuda")
+    direct = kernels.launch_counts()
+    assert all(direct[k] > 0 for k in ("track_prep", "ext_dp", "run_walk"))
+    srv = server.MapServer(("127.0.0.1", 0), mi, opt, 2)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        host, port = srv.server_address
+        payload = open(faa, "rb").read()
+        kernels.reset_launch_counts()
+        got = [server.query(host, port, payload) for _ in range(2)]
+        launches = kernels.launch_counts()
+        assert server.query(host, port, b"") == b""
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert got[0] == got[1] == want.getvalue().encode()
+    assert launches == {k: 2 * v for k, v in direct.items()}
