@@ -50,16 +50,25 @@ Phases (any failure exits non-zero and prints no result):
      dp32 / sketch_nt4); time, cells, GCUPS, bound; one flush_begin of
      a round of ext and scan jobs (launches, collect wave, host DPs)
      under torch.cuda.set_sync_debug_mode("error"), its results equal
-     to the host engine's
+     to the host engine's; the bench records of
+     miniprot_tpu_torch.benchmarks (run_bench_op "ext" and "cigar": the
+     rates of K7 + K1 and of each CIGAR class's K7 + DP + walk, their
+     readings, spread and peak shares)
   4. end to end: testgen's 200 Mb x 2000-protein workload mapped with
      the GPU engine and the host engine, byte-identical, device cell
      fraction >= 0.90, every kernel of the path launched; the GPU map
      again at PRE_CHUNK 0 (pre_align for the whole batch before the
      first round: no overlap); then the GPU
      map on the striped route (MINIPROT_TPU_CIG_IMPL=striped) against
-     the same host output, the -O 0 map on both engines, MapServer on
-     the card answering two disjoint subsets of the proteins and an
-     empty request (each reply equal to map_file of its subset), and
+     the same host output, the -O 0 map on both engines, the map with
+     route_probe=True (its cache in a temporary directory; the choice
+     and both probe times; a second map that reads a decisive outcome
+     from the cache), MapServer on the card answering two disjoint
+     subsets of the proteins and an empty request (each reply equal to
+     map_file of its subset), cli.main --profile-trace on the first
+     subset on the default and the striped route (output equal to the
+     host engine's, a device event in the trace for every kernel that
+     was launched, K3's, K5's and K7's device-only ms per launch), and
      the index built with the device sketch against the host index
      (with its stage split).  Each run
      sets the launch counts to 0 just before it and reads them after;
@@ -86,49 +95,15 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks used for bound_ms: HBM3 bandwidth (NVIDIA data sheet);
-# the int32 rate of the CUDA cores, 132 SMs x 64 int32 lanes x 1.98 GHz
-# boost (Hopper architecture white paper); and the int16 rate: two int16
-# lanes per int32 lane (int16x2), with a DPX fused add+max counted as
-# two operations per lane, so 4x the int32 rate.
-MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-INT16_OPS_PER_S = 4 * INT32_OPS_PER_S
-# operations per DP cell that the recurrence needs, counted from the host
-# engine's saturating-int16 inner loops (native/mpnative.c) without any
-# scan overhead: K1 (dp16_ext_w) 1 match add, I 4, D 4, A 5, B 5, C 4,
-# four frameshift moves 8, row max 1 = 32; K2 (the NS_F_CIGAR loop) the
-# same 31 without the row max, 5 extend bits x 2 (compare, or), 9
-# state selects x 2 (compare, select), 1 or, and the lazy-F pass over
-# the row (compare-or, max, decay) 4 = 64.  Both fit int16 (K1 under
-# ext_fits_int16), so both are held to the int16 rate.
-K1_OPS_PER_CELL = 32
-K2_OPS_PER_CELL = 64
-# K4 (the striped form of the same NS_F_CIGAR loop) is held to K2's 64,
-# at the int16 rate for B4 and the int32 rate for B4'.  K6 per window
-# (codon slot): 3 base tests, codon index 4, table lookups 2, sense 1,
-# run bookkeeping 4 = 14; and for a window whose run passes the length
-# tests (ending >= k, total >= -L), k-mer roll 3, hash 13, keep test 2
-# = 18 more.  No other window needs its hash: the index keeps nothing
-# of it.  (Counting the 18 for every window, 32 in all, is the most the
-# inputs could need.)
-SKETCH_OPS_PER_WINDOW = 14
-SKETCH_OPS_PER_RUN_WINDOW = 18
-# the device prep of a raw batch (K7; plain: _prep_seq_device +
-# _logpen_device) per genome row of a problem, counted from the
-# recurrences of the problem's own direction (the plain version computes
-# both and selects): the codon 13 int32 operations (4 range tests, 3
-# ands, 2 shifts, 2 ors, the table read, a select), the donor track 23
-# (7 base tests, 7 ands/ors, 5 site-type selects, score read and select,
-# the row-range test and select), the acceptor track 25 (the same and
-# the poly-Y sum), the folds 4: 64 in all; an ext batch's log penalty
-# adds 4 (x = row - 3 al and the threshold count advanced along the
-# rows).  An earlier count, 160, took both directions, and K7 ran below
-# the bound it gave on an H100.  A row reads its nt4 code (1
-# byte) and writes nas (1), D and A (4 + 4) and an ext batch's
-# log-penalty row (4)
-PREP_OPS_PER_ROW = 64
-PREP_LOGPEN_OPS_PER_ROW = 4
+# the H100 rates and operation counts bound_ms is computed from
+from miniprot_tpu_torch.benchmarks import (INT16_OPS_PER_S,
+                                           INT32_OPS_PER_S, K1_OPS_PER_CELL,
+                                           K2_OPS_PER_CELL, MEM_BYTES_PER_S,
+                                           PREP_LOGPEN_OPS_PER_ROW,
+                                           PREP_OPS_PER_ROW,
+                                           SKETCH_OPS_PER_RUN_WINDOW,
+                                           SKETCH_OPS_PER_WINDOW)
+
 SRC = "miniprot_tpu_torch/kernels/csrc/"
 # contigs of the e2e workload: each is genome_mb / N_CTG long, the
 # strand length the device sketch sees
@@ -984,19 +959,19 @@ def phase_index(genome_mb, n_prot, reps=2):
 @contextlib.contextmanager
 def _pre_chunk(n):
     """pipeline.PRE_CHUNK set to ``n`` inside the block (None: left as
-    it is, or a tree without it)."""
+    it is)."""
     from miniprot_tpu_torch import pipeline
-    old = getattr(pipeline, "PRE_CHUNK", None)
-    if n is not None and old is not None:
+    old = pipeline.PRE_CHUNK
+    if n is not None:
         pipeline.PRE_CHUNK = n
     try:
-        yield getattr(pipeline, "PRE_CHUNK", None)
+        yield pipeline.PRE_CHUNK
     finally:
-        if old is not None:
-            pipeline.PRE_CHUNK = old
+        pipeline.PRE_CHUNK = old
 
 
-def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None):
+def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None,
+         route_probe=False):
     """One map_file run with the launch counts set to 0 just before it
     and read just after; fails unless every kernel in ``need`` was
     launched (and, for the host engine, unless none was)."""
@@ -1010,55 +985,44 @@ def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None):
         with kernels.timed_launches() as kernel_ms:
             t0 = time.perf_counter()
             n = map_file(mi, faa, opt, n_threads=threads, out=buf,
-                         device=device, stats=stats)
+                         device=device, stats=stats, route_probe=route_probe)
             wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
     run = dict(out=buf.getvalue(), wall=wall, n=n, stats=stats,
                launches=launches, kernel_ms=kernel_ms,
                stages=dict(profiler.stages), pre_chunk=chunk,
-               wave=getattr(profiler, "wave_span_s", None),
-               exposed=getattr(profiler, "device_exposed_s", None),
-               collects=getattr(profiler, "device_blocked_s", None),
+               wave=profiler.wave_span_s, exposed=profiler.device_exposed_s,
                rounds=profiler.flush_rounds)
     if device is None and any(launches.values()):
         fail(f"the host engine run launched kernels: {launches}")
     for k in need:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    if device is not None and stats["device_fraction"] < 0.90:
+    if device is not None and not route_probe \
+            and stats["device_fraction"] < 0.90:
         fail(f"device cell fraction {stats['device_fraction']:.4f} < 0.90")
     return run
 
 
 def _stage_line(run) -> str:
     """The GPU map's host stages, its collect waves against the wait they
-    cost the driving thread, its flush rounds and launches per kind.
-    A tree without the wave reports its collects' seconds alone."""
+    cost the driving thread, its flush rounds and launches per kind."""
     st, stats = run["stages"], run["stats"]
     per_kind: dict = {}
     for key, (t, _) in stats["bucket_problems"].items():
         c = per_kind.setdefault(key[0], [0, 0])
         c[0] += stats["bucket_batches"][key]
         c[1] += t
-    waves = (f"collect waves span {run['wave']:.3f} s, exposed wait "
-             f"{run['exposed']:.3f} s" if run["wave"] is not None
-             else f"in collects (sync + decode) {run['collects']:.3f} s, "
-             "exposed wait not measured")
     return (f"PRE_CHUNK {run['pre_chunk']}; pre_align "
             f"{st.get('pre_align', 0):.3f}, pre_align_wait "
-            + (f"{st['pre_align_wait']:.3f}" if "pre_align_wait" in st
-               else "not measured")
-            + f", align_rounds {st.get('align_rounds', 0):.3f}, "
-            f"finish_align {st.get('finish_align', 0):.3f}, emit "
-            + (f"{st['emit']:.3f}" if "emit" in st else "not measured")
-            + ", pool start "
-            + (f"{st['pool_start']:.3f}" if "pool_start" in st
-               else "not measured")
-            + " s; inside the "
+            f"{st.get('pre_align_wait', 0):.3f}, align_rounds "
+            f"{st.get('align_rounds', 0):.3f}, finish_align "
+            f"{st.get('finish_align', 0):.3f}, emit {st.get('emit', 0):.3f}, "
+            f"pool start {st.get('pool_start', 0):.3f} s; inside the "
             f"batches' launch() {stats['launch_s']:.3f} s, decode "
-            + (f"{stats['decode_s']:.3f} s" if "decode_s" in stats
-               else "not measured")
-            + f"; {waves}; {run['rounds']} flush rounds; launches / mean "
+            f"{stats['decode_s']:.3f} s; collect waves span "
+            f"{run['wave']:.3f} s, exposed wait {run['exposed']:.3f} s; "
+            f"{run['rounds']} flush rounds; launches / mean "
             "problems per launch: " + ", ".join(
                 f"{k} {n} / {t / n:.1f}"
                 for k, (n, t) in sorted(per_kind.items())))
@@ -1145,27 +1109,33 @@ def phase_flush_no_sync(seed):
           "flush_end equal to the host engine", flush=True)
 
 
-def phase_server(mi, faa, d, threads):
-    """MapServer on 127.0.0.1:0 on the card answers two disjoint subsets
-    of the workload's proteins and an empty request; each reply equals
-    map_file of the same subset on the host engine.  Returns the kernel
-    launches of the three requests."""
-    import threading
-
-    from miniprot_tpu_torch import kernels, server
+def _subsets(mi, faa, d, threads):
+    """Two disjoint subsets of the workload's proteins (150 each at most)
+    written to ``d``: [(path, map_file output on the host engine)]."""
     from miniprot_tpu_torch.bseq import read_fastx
     from miniprot_tpu_torch.options import MapOpt
     recs = list(read_fastx(faa))
     k = min(150, len(recs) // 2)
-    subsets = [recs[:k], recs[k:2 * k]]
-    opt = MapOpt()
     want = []
-    for k, sub in enumerate(subsets):
-        fn = os.path.join(d, f"sub{k}.faa")
+    for j, sub in enumerate((recs[:k], recs[k:2 * k])):
+        fn = os.path.join(d, f"sub{j}.faa")
         with open(fn, "wb") as f:
             f.write(b"".join(b">" + r.name.encode() + b"\n" + r.seq + b"\n"
                              for r in sub))
-        want.append((fn, _map(mi, fn, opt, None, threads)["out"]))
+        want.append((fn, _map(mi, fn, MapOpt(), None, threads)["out"]))
+    return want
+
+
+def phase_server(mi, want, threads):
+    """MapServer on 127.0.0.1:0 on the card answers two disjoint subsets
+    of the workload's proteins (``want``: _subsets') and an empty
+    request; each reply equals map_file of the same subset on the host
+    engine.  Returns the kernel launches of the three requests."""
+    import threading
+
+    from miniprot_tpu_torch import kernels, server
+    from miniprot_tpu_torch.options import MapOpt
+    opt = MapOpt()
     srv = server.MapServer(("127.0.0.1", 0), mi, opt, threads, "cuda")
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -1191,19 +1161,165 @@ def phase_server(mi, faa, d, threads):
         if launches[k] <= 0:
             fail(f"server: kernel {k} was not launched by the requests")
     print(f"[server] MapServer on the card, {threads} threads: replies to "
-          f"{len(subsets[0])} + {len(subsets[1])} proteins byte-identical "
+          f"two subsets of {_n_records(want[0][0])} + "
+          f"{_n_records(want[1][0])} proteins byte-identical "
           f"to map_file on the host engine, the empty request empty; "
           f"{wall:.2f} s for the three; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return launches
 
 
+def _n_records(fn) -> int:
+    with open(fn, "rb") as f:
+        return f.read().count(b">")
+
+
+def phase_bench():
+    """miniprot_tpu_torch.benchmarks on the card: run_bench_op("ext") and
+    ("cigar"), each record with its readings, spread and peak share;
+    every rate finite and above 0."""
+    import math
+
+    from miniprot_tpu_torch.benchmarks import run_bench_op
+    for kind in ("ext", "cigar"):
+        t0 = time.perf_counter()
+        rec = run_bench_op(kind)
+        nums = [(k, x) for k, v in rec.items() if k != "device"
+                for x in (v if isinstance(v, list) else [v])]
+        if any(not math.isfinite(x) or x < 0
+               or (x == 0 and k != "ext_gcups_spread") for k, x in nums):
+            fail(f"bench {kind}: a rate is not finite and positive: {rec}")
+        print(f"[bench {kind}] {json.dumps(rec)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_route(mi, faa, host_out, d, threads, need):
+    """map_file(route_probe=True) of the e2e workload on the card, the
+    route cache in ``d``: byte-identical to the host engine's output, the
+    choice and both probe times printed; when the outcome was decisive
+    (cached), a second map that reads the cache instead of probing, also
+    byte-identical.  Returns the first map's launches."""
+    from miniprot_tpu_torch import pipeline
+    from miniprot_tpu_torch.options import MapOpt
+    cache = os.path.join(d, "route.json")
+    old = pipeline._route_cache_path
+    pipeline._route_cache_path = lambda: cache
+    try:
+        first = _map(mi, faa, MapOpt(), "cuda", threads, need,
+                     route_probe=True)
+        decisive = os.path.exists(cache)
+        second = (_map(mi, faa, MapOpt(), "cuda", threads, route_probe=True)
+                  if decisive else None)
+    finally:
+        pipeline._route_cache_path = old
+    st = first["stats"]
+    if first["out"] != host_out:
+        fail("route-probe map output differs from the host engine's")
+    if "route_probe_device_s" not in st:
+        fail(f"route-probe map ran no probe: {st.get('route_choice')}")
+    t_dev, t_host = st["route_probe_device_s"], st["route_probe_host_s"]
+    verdict = "decisive, cached" if decisive else "near tie, not cached"
+    print(f"[route] probe on the e2e workload: device block "
+          f"{t_dev:.3f} s, host block {t_host:.3f} s -> {st['route_choice']} "
+          f"engine ({verdict}); byte-identical to the host engine; map {first['wall']:.2f} s "
+          f"({first['n'] / first['wall']:.2f} proteins/s); launches "
+          f"{ {k: v for k, v in first['launches'].items() if v} }",
+          flush=True)
+    if second is not None:
+        if second["out"] != host_out:
+            fail("cached-route map output differs from the host engine's")
+        if not second["stats"].get("route_cached"):
+            fail("the second route-probe map did not read the cache")
+        print(f"[route] second map read the cache "
+              f"({second['stats']['route_choice']} engine): byte-identical; "
+              f"{second['wall']:.2f} s "
+              f"({second['n'] / second['wall']:.2f} proteins/s)", flush=True)
+    return first["launches"]
+
+
+# the kernels whose device-only time per launch the trace phase prints
+TRACE_TIMES = ("run_walk_kernel", "cell_walk_kernel", "track_prep_kernel")
+
+
+def _cli_map(mpi, faa, want, d, threads, impl=None, trace_dir=None):
+    """cli.main on ``faa`` against the dumped index ``mpi`` (on the
+    striped route when ``impl``; with --profile-trace=``trace_dir``
+    when given), its output required to equal ``want``, the launch
+    counts set to 0 just before it: (wall s, launches)."""
+    from miniprot_tpu_torch import cli, kernels
+    out = os.path.join(d, "cli_out.paf")
+    argv = [mpi, faa, "-t", str(threads), "-o", out]
+    if trace_dir is not None:
+        argv.append(f"--profile-trace={trace_dir}")
+    if impl:
+        os.environ["MINIPROT_TPU_CIG_IMPL"] = impl
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MINIPROT_TPU_CIG_IMPL", None)
+    launches = kernels.launch_counts()
+    if rc != 0:
+        fail(f"cli.main {' '.join(argv[4:])}: returned {rc}")
+    with open(out) as f:
+        if f.read() != want:
+            fail(f"cli.main {' '.join(argv[4:])}: output differs from the "
+                 "host engine's")
+    return wall, launches
+
+
+def phase_trace(mpi, faa, want, d, threads):
+    """cli.main with --profile-trace on ``faa`` (a subset of the
+    workload, its host-engine output ``want``) against the dumped index
+    ``mpi``: after one run without the trace, on the default route (the
+    profiler's first start in this process), the striped route and the
+    default route again.  Each output byte-identical, and a device event
+    in the trace for every kernel whose launch count went up; prints
+    each kernel's events against its launches, K3's, K5's and K7's
+    device-only ms per launch, and each run's wall beside the untraced
+    one.  Returns {"trace " + route: launches}."""
+    from miniprot_tpu_torch import kernels
+    plain, _ = _cli_map(mpi, faa, want, d, threads)
+    print(f"[trace] cli.main on {_n_records(faa)} proteins without "
+          f"--profile-trace: {plain:.2f} s", flush=True)
+    runs = {}
+    for k, (tag, impl) in enumerate((("default", None),
+                                     ("striped route", "striped"),
+                                     ("default again", None))):
+        tdir = os.path.join(d, f"trace{k}")
+        wall, launches = _cli_map(mpi, faa, want, d, threads, impl, tdir)
+        path = os.path.join(tdir, "trace.json")
+        times = kernels.trace_kernel_times(path)
+        per_fn: dict = {}
+        for c, v in launches.items():
+            if v:
+                fn = kernels.KERNEL_FUNCTIONS[c]
+                per_fn[fn] = per_fn.get(fn, 0) + v
+        for fn in per_fn:
+            if times.get(fn, (0, 0.0))[0] <= 0:
+                fail(f"trace {tag}: no device event for {fn}, launched "
+                     f"{per_fn[fn]} times")
+        print(f"[trace {tag}] {os.path.getsize(path)} bytes, cli.main "
+              f"{wall:.2f} s (untraced {plain:.2f}), byte-identical; device "
+              "events / launches, device ms: " + ", ".join(
+                  f"{fn} {times[fn][0]} / {n}, {times[fn][1]:.3f}"
+                  for fn, n in sorted(per_fn.items()))
+              + "; device-only ms per launch: " + ", ".join(
+                  f"{fn} {times[fn][1] / times[fn][0]:.4f}"
+                  for fn in TRACE_TIMES if fn in times), flush=True)
+        runs[f"trace {tag}"] = launches
+    return runs
+
+
 def phase_e2e(genome_mb, n_prot, threads):
     """The default map (PRE_CHUNK at its default, and again at 0), the
-    striped-route map and the -O 0 map on both engines, the server, and
-    the index built with the device sketch.  Returns each path's launch
-    counts: {"default" | "PRE_CHUNK 0" | "striped route" | "-O 0" |
-    "server" | "index": {kernel: launches}}."""
+    striped-route map and the -O 0 map on both engines, the route-probe
+    map, the server, the traced CLI maps and the index built with the
+    device sketch.  Returns each path's launch counts: {"default" |
+    "PRE_CHUNK 0" | "striped route" | "-O 0" | "route probe" | "server"
+    | "trace <route>" | "index": {kernel: launches}}."""
     import numpy as np
 
     from miniprot_tpu_torch.index import Index
@@ -1239,8 +1355,13 @@ def phase_e2e(genome_mb, n_prot, threads):
         o0.go = 0
         gpu0 = _map(mi, faa, o0, "cuda", threads, k45)
         host0 = _map(mi, faa, o0, None, threads)
+        route_launches = phase_route(mi, faa, host["out"], d, threads, k123)
         profiler.enabled = False
-        srv_launches = phase_server(mi, faa, d, threads)
+        subsets = _subsets(mi, faa, d, threads)
+        srv_launches = phase_server(mi, subsets, threads)
+        mpi = os.path.join(d, "g.mpi")
+        mi.dump(mpi)
+        trace_launches = phase_trace(mpi, *subsets[0], d, threads)
         mi_gpu, sk_wall, sk_stages, sk_launches = index_build(fa)
     if gpu["out"] != host["out"]:
         fail("GPU engine output differs from the host engine's")
@@ -1271,23 +1392,20 @@ def phase_e2e(genome_mb, n_prot, threads):
           + _stages_line(sk_wall, sk_stages), flush=True)
     return {"default": gpu["launches"], "PRE_CHUNK 0": whole["launches"],
             "striped route": striped["launches"], "-O 0": gpu0["launches"],
-            "server": srv_launches, "index": sk_launches}
+            "route probe": route_launches, "server": srv_launches,
+            **trace_launches, "index": sk_launches}
 
 
 def phase_maps(genome_mb, n_prot, threads, pre_chunks):
     """The e2e workload's three GPU maps alone (no host maps, no kernel
-    phases), at each PRE_CHUNK of ``pre_chunks`` (a tree without the
-    streaming producer maps once), each with its proteins/s, stage
-    split, collect waves against exposed wait, flush rounds and the
-    kernels' device time: the comparison of two trees (--package) in
-    one call."""
-    from miniprot_tpu_torch import pipeline
+    phases), at each PRE_CHUNK of ``pre_chunks``, each with its
+    proteins/s, stage split, collect waves against exposed wait, flush
+    rounds and the kernels' device time: the comparison of two trees
+    (--package) in one call."""
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt
     from miniprot_tpu_torch.sysutil import profiler
     from miniprot_tpu_torch.testgen import make_workload
-    if not hasattr(pipeline, "PRE_CHUNK"):
-        pre_chunks = [None]
     o0 = MapOpt()
     o0.go = 0
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
@@ -1342,6 +1460,10 @@ def main() -> None:
                     "checkout, e.g. a parent commit's) instead of this one")
     args = ap.parse_args()
     if args.package:
+        # the rates above come from this checkout, the rest from DIR
+        for m in [m for m in sys.modules
+                  if m.split(".")[0] == "miniprot_tpu_torch"]:
+            del sys.modules[m]
         sys.path.insert(0, os.path.abspath(args.package))
     t_start = time.perf_counter()
     import torch
@@ -1416,6 +1538,7 @@ def main() -> None:
     entries.append(phase_dp32(1024, 4096, 128, 22))
     entries.append(phase_sketch(12, args.genome_mb * 1_000_000 // N_CTG))
     phase_flush_no_sync(23)
+    phase_bench()
     runs = phase_e2e(args.genome_mb, args.proteins, args.threads)
     for e in entries:
         if "counter" in e:

@@ -84,6 +84,13 @@ Options:
                  host sketch; fails when no sm_90 card is present)
     --profile    per-stage timers + DP cell counters and kernel launch
                  counts to stderr
+    --profile-trace=DIR  write a torch.profiler Chrome trace of the map
+                 to DIR/trace.json: host operations and, on the card,
+                 every kernel launch with its device time
+    --route-probe  measure the GPU engine against the host engine on the
+                 first mini-batch (split A/B, each query mapped once)
+                 and keep the faster; a decisive outcome is cached for
+                 6h in ~/.cache/miniprot_tpu_torch/route.json
     -o FILE      write output to FILE instead of stdout
     --resume     with -o: checkpoint after each mini-batch and resume an
                  interrupted run from the last complete batch
@@ -93,13 +100,59 @@ _LONG_OPTS = {
     "gpu", "no-gpu", "gpu-sketch", "gff", "gff-only", "gtf", "aln", "trans",
     "no-cs", "no-pre-chain",
     "version", "no-kalloc", "profile", "dbg-qname", "dbg-no-refine",
-    "dbg-aflt", "dbg-anchor", "dbg-chain", "resume",
+    "dbg-aflt", "dbg-anchor", "dbg-chain", "resume", "route-probe",
 }
 _LONG_OPTS_ARG = {
     "xdrop", "outn", "gff-delim", "J2", "outs", "max-skip", "max-intron-out",
-    "outc", "ie-coef", "spsc", "spsc0", "spsc-max",
+    "outc", "ie-coef", "spsc", "spsc0", "spsc-max", "profile-trace",
 }
 _SHORT_ARG = "kMLslbTtdcnmKpNOEJCFGegBPwjo"
+
+
+class _Trace:
+    """--profile-trace: a torch.profiler session around the map, written
+    as a Chrome trace.  With a device engine it traces the card too
+    (CUDA activity, CUPTI) and write() requires a device event for every
+    kernel the map launched; a trace that cannot be started, written
+    or that lacks a launched kernel raises with the reason."""
+
+    def __init__(self, trace_dir: str, device):
+        from torch.profiler import (ProfilerActivity, profile,
+                                    supported_activities)
+
+        from . import kernels
+        acts = [ProfilerActivity.CPU]
+        if device is not None:
+            if ProfilerActivity.CUDA not in supported_activities():
+                raise RuntimeError(
+                    "--profile-trace: this torch build cannot trace the card "
+                    "(no CUDA activity in torch.profiler."
+                    "supported_activities())")
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        self.path = os.path.join(trace_dir, "trace.json")
+        self.before = kernels.launch_counts()
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def stop(self) -> None:
+        self.prof.stop()
+
+    def write(self) -> None:
+        from . import kernels, sysutil
+        self.prof.export_chrome_trace(self.path)
+        after = kernels.launch_counts()
+        launched = {kernels.KERNEL_FUNCTIONS[k] for k, v in after.items()
+                    if v > self.before[k]}
+        times = kernels.trace_kernel_times(self.path)
+        missing = sorted(launched - set(times))
+        if missing:
+            raise RuntimeError(
+                f"--profile-trace: {self.path} holds no device event for "
+                f"{', '.join(missing)}, which the map launched")
+        sysutil.log("main", "profile trace %s: %s", self.path, "; ".join(
+            f"{fn} {n} launches, {ms:.3f} ms on the device"
+            for fn, (n, ms) in sorted(times.items())) or "no kernel")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -126,6 +179,8 @@ def _run(argv: list[str], server_parse: bool = False):
     fn_spsc = None
     fn_out = None
     resume = False
+    route_probe = False
+    trace_dir = None
     set_I = set_G = keep_io = 0
     pos: list[str] = []
     dbg: dict = {}
@@ -156,6 +211,10 @@ def _run(argv: list[str], server_parse: bool = False):
                 mo.flag |= F_NO_CS
             elif key == "resume":
                 resume = True
+            elif key == "route-probe":
+                route_probe = True
+            elif key == "profile-trace":
+                trace_dir = val
             elif key == "no-pre-chain":
                 mo.flag |= F_NO_PRE_CHAIN
             elif key == "xdrop":
@@ -298,6 +357,16 @@ def _run(argv: list[str], server_parse: bool = False):
         from . import sysutil
         sysutil.error("%s", ex)
         return 1
+    if route_probe and device is None:
+        from . import sysutil
+        sysutil.error("--route-probe measures the GPU engine against the "
+                      "host engine: it cannot be used with --no-gpu")
+        return 1
+    if server_parse and (route_probe or trace_dir is not None):
+        from . import sysutil
+        sysutil.error("--route-probe and --profile-trace apply to a map "
+                      "run, not to the server")
+        return 1
     if not pos or (len(pos) == 1 and fn_idx is None and not server_parse):
         sys.stderr.write(USAGE)
         return 1
@@ -344,13 +413,20 @@ def _run(argv: list[str], server_parse: bool = False):
             ckpt = fn_out + ".ckpt"
             if mode == "w" and os.path.exists(ckpt):
                 os.remove(ckpt)  # stale journal without its output file
+    trace = None
+    if trace_dir is not None:
+        trace = _Trace(trace_dir, device)
     try:
         for fn in pos[1:]:
             map_file(mi, fn, mo, n_threads, out=out, device=device, dbg=dbg,
-                     ckpt=ckpt)
+                     ckpt=ckpt, route_probe=route_probe)
     finally:
         if out is not sys.stdout:
             out.close()
+        if trace is not None:
+            trace.stop()
+    if trace is not None:
+        trace.write()
     from . import sysutil
     from . import MP_VERSION as _V
     sysutil.log("main", "Version: %s (miniprot_tpu_torch %s)", _V,

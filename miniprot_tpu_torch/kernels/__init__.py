@@ -18,6 +18,7 @@ import contextlib
 import ctypes as ct
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,6 +37,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"ext_dp": 0, "scan_cigar_dp": 0, "scan_cigar_dp_small": 0,
             "run_walk": 0, "striped_cigar_dp": 0, "striped_cigar_dp32": 0,
             "cell_walk": 0, "sketch_orf": 0, "track_prep": 0}
+
+# the __global__ function each counter's wrapper launches: the name a
+# profiler trace gives the kernel
+KERNEL_FUNCTIONS = {
+    "ext_dp": "ext_dp_kernel", "scan_cigar_dp": "scan_cigar_kernel",
+    "scan_cigar_dp_small": "scan_cigar_kernel",
+    "run_walk": "run_walk_kernel", "striped_cigar_dp": "striped_cigar_kernel",
+    "striped_cigar_dp32": "striped32_kernel", "cell_walk": "cell_walk_kernel",
+    "sketch_orf": "sketch_orf_kernel", "track_prep": "track_prep_kernel"}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -62,6 +72,28 @@ _SIGNATURES = {
     # nt8 left io nl al nas D A logpen | n R | params (host) | stream
     "mp_track_prep": [_vp] * 9 + [_i] * 2 + [_vp] * 2,
 }
+
+
+def trace_kernel_times(path: str) -> dict:
+    """{__global__ function: (device events, device ms)} of the kernel
+    events (category "kernel", one per launch) that name one of
+    KERNEL_FUNCTIONS in a Chrome trace torch.profiler wrote."""
+    import json
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = set(KERNEL_FUNCTIONS.values())
+    out: dict = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        # a template instance's name carries its arguments:
+        # "void ext_dp_kernel<4, 1, false>(signed char const*, ...)"
+        base = re.match(r"(?:void\s+)?(\w+)", ev.get("name", ""))
+        if base is None or base.group(1) not in names:
+            continue
+        n, us = out.get(base.group(1), (0, 0.0))
+        out[base.group(1)] = (n + 1, us + float(ev.get("dur", 0.0)))
+    return {k: (n, us / 1e3) for k, (n, us) in out.items()}
 
 
 def launch_counts() -> dict:

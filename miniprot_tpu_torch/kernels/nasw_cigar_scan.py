@@ -432,6 +432,16 @@ class TrackBatch:
         return (_upload(self.nlv[:self.n], self.device),
                 _upload(self.alv[:self.n], self.device))
 
+    def stage(self) -> tuple:
+        """The batch's inputs uploaded to its device (non-blocking toward
+        the card): what launch() runs on, and may run on again."""
+        nlv, alv = self._lens()
+        return self._track_inputs(), nlv, alv, self._query_inputs()
+
+    def _tracks(self):
+        """(nas, D, A) on the batch's device, as launch() computes them."""
+        return self._prep(self._track_inputs(), self._lens()[0])
+
     def run(self):
         return self.collect(self.launch())
 
@@ -456,11 +466,14 @@ class HostTracks(TrackBatch):
         self.A[b, :nl + 1] = acceptor.astype(np.int32)[:nl + 1]
         return b
 
-    def _tracks(self):
+    def _track_inputs(self):
         n, dev, R = self.n, self.device, self._rows()
         return (_upload(self.nas[:n, :R], dev),
                 _upload(self.D[:n, :R + 8], dev).to(torch.int32),
                 _upload(self.A[:n, :R + 8], dev).to(torch.int32))
+
+    def _prep(self, inputs, nlv):
+        return inputs
 
 
 class RawTracks(TrackBatch):
@@ -485,13 +498,18 @@ class RawTracks(TrackBatch):
         self.iov[b] = io
         return b
 
-    def _tracks(self):
+    def _track_inputs(self):
         n, dev, R = self.n, self.device, self._rows()
+        return (_upload(self.nt[:n, :R + 8], dev),
+                _upload(self.iov[:n], dev))
+
+    def _prep(self, inputs, nlv):
+        """K7 on the staged raw windows: (nas, D, A)."""
+        nt, iov = inputs
         return prep_tracks(
-            _upload(self.nt[:n, :R + 8], dev), None,
-            _upload(self.iov[:n], dev), _upload(self.nlv[:n], dev),
-            sp=self.sp, codon=_tables.get_tables(self.trans_code).codon,
-            n_rows=R)
+            nt, None, iov, nlv, sp=self.sp,
+            codon=_tables.get_tables(self.trans_code).codon,
+            n_rows=self._rows())
 
 
 class _ScanBatch(TrackBatch):
@@ -502,6 +520,9 @@ class _ScanBatch(TrackBatch):
 
     def _alloc_query(self):
         self.prof = np.zeros((self.capacity, 22, self.al), np.int8)
+
+    def _query_inputs(self):
+        return _upload(self.prof[:self.n], self.device)
 
     def _put_query(self, b, aas):
         assert self.go >= 1, "go==0 breaks scan/striped equivalence; " \
@@ -518,13 +539,12 @@ class _ScanBatch(TrackBatch):
     def rounds(self) -> int:
         return min(self._rows_used() + self.al + 2, _rounds_cap())
 
-    def launch(self):
-        """K2 then K3 on the batch's tracks; returns the device handles
-        without waiting."""
-        nlv, alv = self._lens()
+    def launch(self, staged=None):
+        """K7 (raw windows), K2 then K3 on stage()'s tensors (staged here
+        when None); returns the device handles without waiting."""
+        tracks, nlv, alv, prof = self.stage() if staged is None else staged
         tb, hint, score = scan_cigar_dp(
-            *self._tracks(), nlv, alv, _upload(self.prof[:self.n],
-                                               self.device),
+            *self._prep(tracks, nlv), nlv, alv, prof,
             (self.go, self.ge, self.fs), self._rows())
         states, counts, fi, fj = run_walk(tb, hint, nlv, alv, self.rounds())
         return states, counts, fi, fj, score

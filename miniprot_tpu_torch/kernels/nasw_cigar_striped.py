@@ -385,6 +385,10 @@ class _StripedBatch(TrackBatch):
     def _put_query(self, b, aas):
         self.aas[b, :len(aas)] = aas
 
+    def _query_inputs(self):
+        return (_upload(self.aas[:self.n], self.device),
+                _upload(self.mat, self.device))
+
     def steps(self) -> int:
         """Walk steps that finish every problem of the batch: a walk
         ends within nl + al - 2 steps (each one consumes a row or a
@@ -392,18 +396,18 @@ class _StripedBatch(TrackBatch):
         least 1)."""
         return max((nl + al - 2 for nl, al in self.dims), default=1)
 
-    def _launch_dp(self):
-        """K4 on the batch's tracks: (tb, score, nlv, alv) on the card."""
-        nlv, alv = self._lens()
-        tb, score = self._dp(*self._tracks(), nlv, alv,
-                             _upload(self.aas[:self.n], self.device),
-                             _upload(self.mat, self.device),
+    def _launch_dp(self, staged=None):
+        """K7 (raw windows) and K4 on stage()'s tensors (staged here when
+        None): (tb, score, nlv, alv) on the card."""
+        tracks, nlv, alv, (aas, mat) = (self.stage() if staged is None
+                                        else staged)
+        tb, score = self._dp(*self._prep(tracks, nlv), nlv, alv, aas, mat,
                              (self.go, self.ge, self.fs), self._rows())
         return tb, score, nlv, alv
 
-    def launch(self):
+    def launch(self, staged=None):
         """K4 then K5; returns the device handles without waiting."""
-        tb, score, nlv, alv = self._launch_dp()
+        tb, score, nlv, alv = self._launch_dp(staged)
         return (*cell_walk(tb, nlv, alv, self.steps()), score)
 
     def collect(self, handles):
@@ -437,8 +441,8 @@ class Dp32Batch(CigarBatch):
     VLANES = VL32
     _dp = staticmethod(striped_cigar_dp32)
 
-    def launch(self):
-        tb, score, _, _ = self._launch_dp()
+    def launch(self, staged=None):
+        tb, score, _, _ = self._launch_dp(staged)
         return tb, score
 
     def collect(self, handles):

@@ -735,20 +735,24 @@ class RawExtBatch:
         self.n += 1
         return b
 
-    def launch(self):
-        """K7 then K1; returns the (n, 3) result tensor without waiting
-        for the card."""
+    def stage(self) -> tuple:
+        """The batch's inputs uploaded to its device (non-blocking toward
+        the card): what launch() runs on, and may run on again."""
         n, dev = self.n, self.device
+        return tuple(_upload(a[:n], dev) for a in (
+            self.nt, self.leftb, self.iov, self.nlv, self.als, self.prof))
+
+    def launch(self, staged=None):
+        """K7 then K1 on stage()'s tensors (staged here when None);
+        returns the (n, 3) result tensor without waiting for the card."""
+        nt, left, iov, nlv, als, prof = (self.stage() if staged is None
+                                         else staged)
         thr = _logpen_thresholds(float(np.float32(self.ie_coef)), self.nl)
-        als = _upload(self.als[:n], dev)
-        nlv = _upload(self.nlv[:n], dev)
         nas, D, A, logpen = prep_tracks(
-            _upload(self.nt[:n], dev), _upload(self.leftb[:n], dev),
-            _upload(self.iov[:n], dev), nlv, sp=self.sp,
+            nt, left, iov, nlv, sp=self.sp,
             codon=tables.get_tables(self.trans_code).codon, n_rows=self.nl,
             als=als, thr=thr)
-        return ext_dp(nas, D, A, logpen, nlv, als,
-                      _upload(self.prof[:n], dev), _opts(self))
+        return ext_dp(nas, D, A, logpen, nlv, als, prof, _opts(self))
 
     collect = ExtBatch.collect
     run = ExtBatch.run

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -128,15 +129,113 @@ class _Prefetcher:
         self._t.join()
 
 
+# the measured engine choice (port of miniprot_tpu.pipeline's route
+# probe), engaged only when the caller asks for it (route_probe=True):
+# 0 turns it off even then.  The first mini-batch is probed when it holds
+# at least ROUTE_MIN_BATCH queries, on blocks of min(ROUTE_BLOCK_MAX,
+# max(ROUTE_BLOCK_MIN, len(batch) // 3)) queries per engine.
+ROUTE_PROBE_N = 1
+ROUTE_MIN_BATCH = 512
+ROUTE_BLOCK_MIN = 64
+ROUTE_BLOCK_MAX = 512
+# a DECISIVE probe outcome (>= this rate ratio) is cached on disk and
+# reused for this long, so repeat runs on the same machine skip the
+# probe; near ties are probed again every run.
+ROUTE_CACHE_MARGIN = 1.3
+ROUTE_CACHE_TTL_S = 6 * 3600.0
+# the probe's clock
+_clock = time.monotonic
+
+
+def _route_cache_path() -> str:
+    return os.path.join(os.path.expanduser("~/.cache/miniprot_tpu_torch"),
+                        "route.json")
+
+
+def _route_cache_load():
+    """The cached engine choice, or None (absent, unreadable or
+    stale)."""
+    import json
+    try:
+        with open(_route_cache_path()) as f:
+            c = json.load(f)
+        if time.time() - c["ts"] > ROUTE_CACHE_TTL_S:
+            return None
+        return c["choice"] if c["choice"] in ("device", "host") else None
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def _route_cache_store(t_dev: float, t_host: float, choice: str) -> None:
+    """Cache a decisive outcome (atomic replace); a near tie is not
+    cached.  A cache that cannot be written only means the next run
+    probes again."""
+    import json
+    if max(t_dev, t_host) < min(t_dev, t_host) * ROUTE_CACHE_MARGIN:
+        return
+    path = _route_cache_path()
+    tmp = path + f".tmp{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump({"ts": time.time(), "t_dev": t_dev, "t_host": t_host,
+                       "choice": choice}, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _route_probe(mi, opt, env, engine, part, block, pool, id_counter,
+                 out):
+    """Measured engine choice by a split A/B (port of
+    miniprot_tpu.pipeline._route_probe): the first ``block`` queries of
+    ``part`` are mapped on the device engine, the rest on the host
+    engine (the pool, or map_query), each query once and emitted in
+    input order (the two engines' outputs are byte-identical), and the
+    faster engine keeps the rest of the run.  A device error raises.
+    Returns (keep the device engine, device s, host s)."""
+    dev_part, host_part = part[:block], part[block:]
+    t0 = _clock()
+    dev_results = map_batch_gpu(mi, opt, env, engine, dev_part, pool)
+    t_dev = _clock() - t0
+    for rec, seq, regs in dev_results:
+        _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
+    t0 = _clock()
+    if pool is not None:
+        host_results = pool.map(_worker_map, [r.seq for r in host_part],
+                                chunksize=max(1, len(host_part) // 32))
+    else:
+        host_results = [map_query(mi, np.frombuffer(rec.seq, np.uint8),
+                                  opt, env=env) for rec in host_part]
+    t_host = _clock() - t0
+    for rec, regs in zip(host_part, host_results):
+        seq = np.frombuffer(rec.seq, dtype=np.uint8)
+        _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
+    keep = t_dev <= t_host
+    sys.stderr.write(
+        f"[route] A/B over {block}+{len(host_part)} queries: device "
+        f"{t_dev:.2f}s vs host {t_host:.2f}s -> "
+        f"{'device' if keep else 'host'} engine for this run\n")
+    return keep, t_dev, t_host
+
+
 def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
              out=None, device="cuda", dbg: dict | None = None,
-             ckpt: str | None = None, stats: dict | None = None) -> int:
+             ckpt: str | None = None, stats: dict | None = None,
+             route_probe: bool = False) -> int:
     """Map all queries in a FASTA/FASTQ file (mp_map_file, map.c:330-343).
 
     device: "cuda" (the default) runs the alignment DPs on the CUDA
     kernels and raises when no sm_90 card is there; "cpu" runs the same
     engine on the kernels' plain PyTorch versions; None maps on the host
     C engine only.
+
+    route_probe: measure the engine on ``device`` against the host
+    engine on the first mini-batch (when it holds ROUTE_MIN_BATCH
+    queries or more) and keep the faster for the rest of the run
+    (_route_probe); a decisive outcome is cached for ROUTE_CACHE_TTL_S
+    and later runs read it instead of probing.  Off by default: the
+    engine on ``device`` then maps everything.
 
     ckpt: path of a mini-batch checkpoint journal (requires a seekable
     `out`).  Mini-batches are idempotent work units (the reference's
@@ -145,6 +244,9 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
     byte offset).  On restart the output is truncated to the last
     complete batch and mapping resumes at the next one, producing
     byte-identical output to an uninterrupted run."""
+    if route_probe and device is None:
+        raise ValueError("route_probe compares a device engine with the "
+                         "host engine: it needs a device")
     out = out or sys.stdout
     dbg = dbg or {}
     reader = BatchReader(fn)
@@ -189,6 +291,33 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
             if batch_idx <= done_batches:
                 n_mapped += len(batch)  # already emitted by a prior run
                 continue
+            if (engine is not None and route_probe and ROUTE_PROBE_N > 0
+                    and batch_idx == done_batches + 1
+                    and len(batch) >= ROUTE_MIN_BATCH):
+                choice = _route_cache_load()
+                if choice is not None:
+                    sys.stderr.write(f"[route] cached decision: {choice} "
+                                     "engine (probed again when older than "
+                                     f"{ROUTE_CACHE_TTL_S / 3600:.0f}h)\n")
+                    if stats is not None:
+                        stats.update(route_choice=choice, route_cached=True)
+                else:
+                    block = min(ROUTE_BLOCK_MAX,
+                                max(ROUTE_BLOCK_MIN, len(batch) // 3))
+                    part, batch = batch[:2 * block], batch[2 * block:]
+                    keep, t_dev, t_host = _route_probe(
+                        mi, opt, env, engine, part, block, pool,
+                        id_counter, out)
+                    choice = "device" if keep else "host"
+                    _route_cache_store(t_dev, t_host, choice)
+                    if stats is not None:
+                        stats.update(route_choice=choice, route_cached=False,
+                                     route_probe_device_s=t_dev,
+                                     route_probe_host_s=t_host)
+                    n_mapped += len(part)
+                if choice == "host":
+                    _engine_stats(engine, stats)
+                    engine = None
             if engine is not None:
                 _map_batch_gpu(mi, opt, env, engine, batch, id_counter, out, pool)
             elif pool is not None:
@@ -216,31 +345,38 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
         pre.close()
         profiler.stop("map")
         if engine is not None:
-            from . import sysutil
-            sysutil.log(
-                "map_file",
-                "DP split: %d device / %d host calls; %.1f%% of cells on "
-                "device (%s)", engine.n_device, engine.n_host,
-                100.0 * profiler.device_fraction(), engine.device)
-            if stats is not None:
-                stats.update(n_device=engine.n_device, n_host=engine.n_host,
-                             device_fraction=profiler.device_fraction(),
-                             batches=dict(engine.batches),
-                             bucket_batches=dict(engine.bucket_batches),
-                             bucket_problems={
-                                 k: tuple(v) for k, v
-                                 in engine.bucket_problems.items()},
-                             host_reasons=dict(engine.host_reasons),
-                             host_dp_s=engine.host_dp_s,
-                             launch_s=engine.launch_s,
-                             decode_s=engine.decode_s,
-                             peak_pending_tb=engine.peak_pending_tb)
+            _engine_stats(engine, stats)
         if ckpt_f is not None:
             ckpt_f.close()
         if pool is not None:
             pool.terminate()
             pool.join()
     return n_mapped
+
+
+def _engine_stats(engine, stats) -> None:
+    """Log the device engine's DP split and put its counters in
+    ``stats``."""
+    from . import sysutil
+    from .sysutil import profiler
+    sysutil.log(
+        "map_file",
+        "DP split: %d device / %d host calls; %.1f%% of cells on "
+        "device (%s)", engine.n_device, engine.n_host,
+        100.0 * profiler.device_fraction(), engine.device)
+    if stats is not None:
+        stats.update(n_device=engine.n_device, n_host=engine.n_host,
+                     device_fraction=profiler.device_fraction(),
+                     batches=dict(engine.batches),
+                     bucket_batches=dict(engine.bucket_batches),
+                     bucket_problems={
+                         k: tuple(v) for k, v
+                         in engine.bucket_problems.items()},
+                     host_reasons=dict(engine.host_reasons),
+                     host_dp_s=engine.host_dp_s,
+                     launch_s=engine.launch_s,
+                     decode_s=engine.decode_s,
+                     peak_pending_tb=engine.peak_pending_tb)
 
 
 # pre_align streaming (port of miniprot_tpu.pipeline's constants of the
@@ -275,7 +411,6 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
     import copy
     import queue as _q
     import threading
-    import time
 
     from .align import align_region_steps
     from .mapper import finish_align, pre_align, trim_scratch

@@ -813,3 +813,92 @@ def test_server_round_trip_on_card(cuda_card, tmp_path):
         srv.server_close()
     assert got[0] == got[1] == want.getvalue().encode()
     assert launches == {k: 2 * v for k, v in direct.items()}
+
+
+def test_bench_records_on_card(cuda_card):
+    """run_bench_op on the card: every key of the record, each rate and
+    peak share finite and above 0, the readings' spread at least 0."""
+    import math
+
+    from miniprot_tpu_torch.benchmarks import run_bench_op
+    ext = run_bench_op("ext")
+    assert set(ext) == {"ext_gcups_reps", "ext_gcups_spread", "value",
+                        "ext_peak_share", "device"}
+    assert len(ext["ext_gcups_reps"]) == 3 and ext["ext_gcups_spread"] >= 0
+    assert all(math.isfinite(x) and x > 0
+               for x in ext["ext_gcups_reps"] + [ext["value"],
+                                                 ext["ext_peak_share"]])
+    cig = run_bench_op("cigar")
+    assert set(cig) == {
+        "cigar_gcups_device_small", "cigar_gcups_device",
+        "cigar_gcups_device_genic", "cigar_gcups_striped_small",
+        "cigar_gcups_striped", "cigar_peak_share", "cigar_gcups_host_small",
+        "cigar_gcups_host", "device"}
+    assert all(math.isfinite(v) and v > 0 for k, v in cig.items()
+               if k != "device")
+    assert cig["device"] == torch.cuda.get_device_name(0)
+
+
+def _small_map_workload(tmp_path):
+    """A testgen genome whose map launches K7, K1, K2 and K3 on the card
+    (as test_server_round_trip_on_card's), its index, and the host
+    engine's output at -G 4k."""
+    import io
+
+    from miniprot_tpu_torch.index import Index
+    from miniprot_tpu_torch.options import IdxOpt, MapOpt
+    from miniprot_tpu_torch.pipeline import map_file
+    from miniprot_tpu_torch.testgen import make_workload
+    fa, faa = str(tmp_path / "g.fa"), str(tmp_path / "q.faa")
+    make_workload(fa, faa, genome_len=400_000, n_genes=12, seed=4, n_ctg=2,
+                  max_intron=1500, rev_frac=0.5)
+    mi = Index.build(fa, IdxOpt())
+    opt = MapOpt()
+    opt.bw = opt.max_intron = 4000
+    want = io.StringIO()
+    map_file(mi, faa, opt, n_threads=1, out=want, device=None)
+    return fa, faa, mi, opt, want.getvalue()
+
+
+@pytest.mark.parametrize("winner", ["device", "host"])
+def test_route_probe_map_on_card_matches_host(cuda_card, tmp_path,
+                                              monkeypatch, winner):
+    """map_file(route_probe=True) on the card, the probe's gates shrunk
+    and its clock faked to pick ``winner``: the host engine's bytes."""
+    import io
+
+    from miniprot_tpu_torch import pipeline
+    fa, faa, mi, opt, want = _small_map_workload(tmp_path)
+    monkeypatch.setattr(pipeline, "ROUTE_MIN_BATCH", 6)
+    monkeypatch.setattr(pipeline, "ROUTE_BLOCK_MIN", 2)
+    monkeypatch.setattr(pipeline, "_route_cache_path",
+                        lambda: str(tmp_path / "route.json"))
+    ticks = iter([0.0, 1.0, 10.0, 12.0] if winner == "device"
+                 else [0.0, 2.0, 10.0, 11.0])
+    monkeypatch.setattr(pipeline, "_clock", lambda: next(ticks))
+    got, stats = io.StringIO(), {}
+    pipeline.map_file(mi, faa, opt, n_threads=2, out=got, device="cuda",
+                      stats=stats, route_probe=True)
+    assert got.getvalue() == want and stats["route_choice"] == winner
+
+
+def test_profile_trace_on_card_has_kernel_events(cuda_card, tmp_path):
+    """cli.main --profile-trace on the card: the output is the host
+    engine's, and the trace holds device events for K7, K1, K2 and K3,
+    as many as the map launched of each."""
+    from miniprot_tpu_torch import cli, kernels
+    fa, faa, mi, _, want = _small_map_workload(tmp_path)
+    mpi, out = str(tmp_path / "g.mpi"), str(tmp_path / "out.paf")
+    mi.dump(mpi)
+    kernels.reset_launch_counts()
+    assert cli.main([mpi, faa, "-G4k", "-t2", "-o", out,
+                     f"--profile-trace={tmp_path / 'tr'}"]) == 0
+    launches = kernels.launch_counts()
+    assert open(out).read() == want
+    times = kernels.trace_kernel_times(str(tmp_path / "tr" / "trace.json"))
+    for counter in ("track_prep", "ext_dp", "run_walk"):
+        fn = kernels.KERNEL_FUNCTIONS[counter]
+        assert launches[counter] > 0 and times[fn][0] == launches[counter]
+    scans = launches["scan_cigar_dp"] + launches["scan_cigar_dp_small"]
+    assert scans > 0 and times["scan_cigar_kernel"][0] == scans
+    assert all(ms > 0 for _, ms in times.values())

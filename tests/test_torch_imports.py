@@ -13,7 +13,8 @@ PORT = ROOT / "miniprot_tpu_torch"
 _PROBE = """
 import sys
 import miniprot_tpu_torch
-from miniprot_tpu_torch import cli, convert, device, pipeline, server  # noqa
+from miniprot_tpu_torch import benchmarks, cli, convert, device  # noqa
+from miniprot_tpu_torch import pipeline, server  # noqa
 from miniprot_tpu_torch.kernels import nasw_cigar_scan, nasw_ext  # noqa
 from miniprot_tpu_torch.kernels import nasw_cigar_striped, sketch_gpu  # noqa
 bad = sorted(m for m in sys.modules

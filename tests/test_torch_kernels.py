@@ -74,3 +74,34 @@ def test_dp32_switch_geometry_is_dp32_warps():
     assert [nasw_cigar_striped.dp32_class(W) for W in (4, 32, 36, 300, 512,
                                                        1000, 1024)] == \
         [32, 32, 128, 512, 512, 1024, 1024]
+
+
+def test_kernel_functions_name_each_counter_and_a_global():
+    """KERNEL_FUNCTIONS maps every launch counter to a __global__
+    function of the sources (the name a profiler trace gives it)."""
+    assert set(kernels.KERNEL_FUNCTIONS) == set(kernels.LAUNCHES)
+    src = "".join(p.read_text() for p in CSRC.glob("*.cu"))
+    glob = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*"
+                          r"\)\s+)?(\w+)", src))
+    assert set(kernels.KERNEL_FUNCTIONS.values()) == glob
+
+
+def test_trace_kernel_times_sums_kernel_events(tmp_path):
+    """Kernel events (one per launch) are summed per __global__ function
+    whatever their template arguments; events of other categories and
+    kernels of other libraries are left out."""
+    import json
+    events = [
+        {"cat": "kernel", "name": "void ext_dp_kernel<4, 1, false>(signed "
+         "char const*, int const*)", "dur": 1500.0},
+        {"cat": "kernel", "name": "void ext_dp_kernel<1, 4, true>(signed "
+         "char const*, int const*)", "dur": 500.0},
+        {"cat": "kernel", "name": "track_prep_kernel", "dur": 20.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "dur": 5.0},
+        {"cat": "kernel", "name": "void at::native::vectorized_elementwise"
+         "_kernel<4>(int)", "dur": 7.0},
+        {"cat": "cpu_op", "name": "aten::copy_", "dur": 9.0}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert kernels.trace_kernel_times(str(path)) == {
+        "ext_dp_kernel": (2, 2.0), "track_prep_kernel": (1, 0.02)}
