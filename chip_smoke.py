@@ -70,13 +70,25 @@ Phases (any failure exits non-zero and prints no result):
      host engine's, a device event in the trace for every kernel that
      was launched, K3's, K5's and K7's device-only ms per launch), and
      the index built with the device sketch against the host index
-     (with its stage split).  Each run
+     (with its stage split); [shards]: the CLI with --shards 2
+     --shard-id {0,1} --spool-dir as two concurrent processes on the
+     card over the dumped index and every protein, PAF then GFF, shard
+     0's output equal to map_file's, each shard's wall, proteins/s, DP
+     split, peak planes in flight and seconds before its first launch
+     (interpreter and imports, CUDA context, library load, index load,
+     engine construction); [mesh]: parallel.dist.mesh_map_queries on a
+     1 x 1 NCCL grid with a GpuExtEngine on the card over the first 500
+     proteins, equal to map_file's output, the two lookup steps' seconds
+     against their byte bounds.  Each run
      sets the launch counts to 0 just before it and reads them after;
      the kernels' device time per run (CUDA events around each launch),
      launches and problems per launch per (kind, width, nl bucket),
      the DPs the engine ran on the host, by reason, with their host
      seconds, and the map's stages, collect waves and flush rounds
-  5. the last line: {"ok": true, "device": {...}}
+  5. entry points: entry() (K7 + K1 at the JAX entry's shape) equal to
+     its plain version and the host engine, timed; dryrun_multichip(1)
+     (one NCCL rank, output equal to map_query's)
+  6. the last line: {"ok": true, "device": {...}}
 
 The lines before the last carry a {"kernels": [...]} JSON object and
 the nvidia-smi card line.
@@ -111,6 +123,9 @@ N_CTG = 4
 
 
 CUDA_BIN = "/usr/local/cuda/bin/"
+# the multi-process paths (the [shards] and [mesh] phases) that launch
+# K7, K1, K2 and K3 besides the single-process maps
+PARALLEL_PATHS = ("shards PAF", "shards GFF", "mesh")
 # a SASS instruction line of cuobjdump: its address, an optional guard
 # predicate, the opcode with its modifiers
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Za-z0-9_.]*)")
@@ -368,7 +383,8 @@ def phase_prep(tag, raw, kw):
                 source=SRC + "track_prep.cu",
                 replaces="miniprot_tpu/kernels/nasw_pallas.py:638",
                 counter="track_prep",
-                paths=("default", "striped route", "-O 0"), max_abs_err=0,
+                paths=("default", "striped route", "-O 0", *PARALLEL_PATHS),
+                max_abs_err=0,
                 ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, tracks=got)
@@ -442,7 +458,8 @@ def phase_ext(al_pad, nl_pad, n, seed, go=None):
                  source=SRC + "ext_dp.cu",
                  replaces="miniprot_tpu/kernels/nasw_pallas.py:89",
                  counter="ext_dp",
-                 paths=("default", "striped route") if go is None
+                 paths=("default", "striped route", *PARALLEL_PATHS)
+                 if go is None
                  else ("-O 0",), max_abs_err=0, ms=ms, plain_ms=plain_ms,
                  bound_ms=bms, bound_by=by, library_ms=None), k7]
 
@@ -578,13 +595,15 @@ def phase_scan(W, nl_pad, n, seed, prep=False):
     return ([k7] if prep else []) + [dict(name=f"{k2}[{tag}]", route="cuda",
                  source=SRC + "scan_cigar.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:111",
-                 counter=k2, paths=("default",), max_abs_err=0, ms=ms,
+                 counter=k2, paths=("default", *PARALLEL_PATHS),
+                 max_abs_err=0, ms=ms,
                  plain_ms=plain_ms, shape=(W, nl_pad, n),
                  bound_ms=bms, bound_by=by, library_ms=None),
             dict(name=f"run_walk[{tag}]", route="cuda",
                  source=SRC + "run_walk.cu",
                  replaces="miniprot_tpu/kernels/nasw_cigar_scan.py:458",
-                 counter="run_walk", paths=("default",), max_abs_err=0,
+                 counter="run_walk", paths=("default", *PARALLEL_PATHS),
+                 max_abs_err=0,
                  ms=walk_ms,
                  plain_ms=walk_plain_ms, bound_ms=wbms, bound_by=wby,
                  library_ms=None)]
@@ -1313,6 +1332,272 @@ def phase_trace(mpi, faa, want, d, threads):
     return runs
 
 
+# one CLI shard process of the [shards] phase: cli.main with the CUDA
+# context and the kernel library set up first (each timed), the index
+# load and the engine's construction timed inside, the launch counts from
+# 0, and the seconds from the parent's spawn to the first flush_begin
+# (the first launch) written with the engine's counters to a JSON file
+SHARD_RUN = r"""
+import json, sys, time
+out_json, t_spawn = sys.argv[1], float(sys.argv[2])
+import torch
+rec = {"torch_s": time.time() - t_spawn}
+from miniprot_tpu_torch import cli, device, kernels
+rec["start_s"] = time.time() - t_spawn
+t0 = time.time()
+torch.cuda.init()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+rec["context_s"] = time.time() - t0
+t0 = time.time()
+kernels.lib()
+rec["library_s"] = time.time() - t0
+engines = []
+load0 = cli.Index.load
+init0 = device.GpuExtEngine.__init__
+flush0 = device.GpuExtEngine.flush_begin
+
+
+def load(*a, **k):
+    t0 = time.time()
+    mi = load0(*a, **k)
+    rec["index_load_s"] = time.time() - t0
+    return mi
+
+
+def init(self, *a, **k):
+    t0 = time.time()
+    init0(self, *a, **k)
+    rec["engine_s"] = time.time() - t0
+    engines.append(self)
+
+
+def flush_begin(self):
+    rec.setdefault("first_launch_s", time.time() - t_spawn)
+    return flush0(self)
+
+
+cli.Index.load = load
+device.GpuExtEngine.__init__ = init
+device.GpuExtEngine.flush_begin = flush_begin
+kernels.reset_launch_counts()
+t0 = time.time()
+rc = cli.main(sys.argv[3:])
+rec.update(rc=rc, wall_s=time.time() - t0, launches=kernels.launch_counts(),
+           n_device=engines[0].n_device, n_host=engines[0].n_host,
+           peak_pending_tb=engines[0].peak_pending_tb)
+with open(out_json, "w") as f:
+    json.dump(rec, f)
+"""
+N_SHARDS = 2
+
+
+def phase_shards(mi, mpi, faa, want_paf, d, threads):
+    """The CLI with --shards 2 --shard-id {0,1} --spool-dir as two
+    concurrent processes on the card, against the dumped index ``mpi``
+    and every protein of ``faa``: PAF, then GFF (two-phase ids), shard
+    0's output byte-identical to map_file's (``want_paf``; the GFF map
+    on the host engine here).  Prints each shard's wall, proteins/s,
+    DP split, peak planes and the seconds before its first launch with
+    their parts.  Returns ({"shards PAF" | "shards GFF": launches of
+    both shards}, [each shard's record])."""
+    import torch
+
+    from miniprot_tpu_torch.options import F_GFF, MapOpt
+    ogff = MapOpt()
+    ogff.flag |= F_GFF
+    want = {"PAF": want_paf,
+            "GFF": _map(mi, faa, ogff, None, threads)["out"]}
+    n_prot = _n_records(faa)
+    # the cache of this process's earlier phases is not the shards' to
+    # compete with
+    torch.cuda.empty_cache()
+    runs, recs = {}, []
+    for mode, flags in (("PAF", []), ("GFF", ["--gff"])):
+        spool = os.path.join(d, f"spool_{mode}")
+        out = os.path.join(d, f"shards.{mode.lower()}")
+        jsons = [os.path.join(d, f"shard{i}_{mode}.json")
+                 for i in range(N_SHARDS)]
+        procs = []
+        for i in range(N_SHARDS):
+            argv = [*flags, "--shards", str(N_SHARDS), "--shard-id", str(i),
+                    "--spool-dir", spool, *(["-o", out] if i == 0 else []),
+                    mpi, faa]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", SHARD_RUN, jsons[i], repr(time.time()),
+                 *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for i, (p, err) in enumerate(zip(procs, errs)):
+            if p.returncode != 0:
+                fail(f"shards {mode}: shard {i} exited {p.returncode}: "
+                     f"{err[-2000:]}")
+        with open(out) as f:
+            if f.read() != want[mode]:
+                fail(f"shards {mode}: shard 0's output differs from "
+                     "map_file's")
+        launches: dict = {}
+        for i, fn in enumerate(jsons):
+            with open(fn) as f:
+                rec = json.load(f)
+            rec.update(mode=mode, shard=i)
+            recs.append(rec)
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            n_mine = len(range(i, n_prot, N_SHARDS))
+            print(f"[shards {mode}] shard {i}: {n_mine} proteins in "
+                  f"{rec['wall_s']:.2f} s of cli.main "
+                  f"({n_mine / rec['wall_s']:.2f} proteins/s); DP split "
+                  f"{rec['n_device']} device / {rec['n_host']} host; peak "
+                  f"planes in flight {rec['peak_pending_tb']} bytes; "
+                  f"{rec['first_launch_s']:.2f} s from spawn to the first "
+                  f"launch: interpreter and import torch "
+                  f"{rec['torch_s']:.2f}, the package's imports "
+                  f"{rec['start_s'] - rec['torch_s']:.2f}, "
+                  f"CUDA context {rec['context_s']:.2f}, library load "
+                  f"{rec['library_s']:.3f}, index load "
+                  f"{rec['index_load_s']:.3f} (mapped), engine construction "
+                  f"{rec['engine_s']:.3f}, the rest (the first chunk's "
+                  "pre_align) "
+                  f"{rec['first_launch_s'] - rec['start_s'] - rec['context_s'] - rec['library_s'] - rec['index_load_s'] - rec['engine_s']:.2f}",
+                  flush=True)
+        for k in ("track_prep", "ext_dp", "scan_cigar_dp", "run_walk"):
+            if launches[k] <= 0:
+                fail(f"shards {mode}: kernel {k} was not launched")
+        print(f"[shards {mode}] {N_SHARDS} processes on one card: shard 0's "
+              f"output byte-identical to map_file's ({n_prot} proteins, "
+              f"{want[mode].count(chr(10))} lines); launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        runs[f"shards {mode}"] = launches
+    return runs, recs
+
+
+MESH_PROTEINS = 500
+
+
+def phase_mesh(mi, faa, d, threads):
+    """mesh_map_queries on a 1 x 1 NCCL grid (world size 1, a file://
+    store) with a GpuExtEngine on the card, over the whole index and the
+    first MESH_PROTEINS proteins (the rank's pre_align is serial),
+    twice: the first map also sets up the NCCL communicators, the
+    second's output must be byte-identical to map_file's on those
+    proteins, and its two steps' seconds are printed against their byte
+    bounds, with K, a_cap and the pass-2 chunks.  Returns the second
+    map's launches."""
+    import datetime
+
+    import numpy as np
+    import torch.distributed as tdist
+
+    from miniprot_tpu_torch import kernels
+    from miniprot_tpu_torch.bseq import read_fastx
+    from miniprot_tpu_torch.device import GpuExtEngine
+    from miniprot_tpu_torch.options import MapOpt
+    from miniprot_tpu_torch.parallel import dist
+    from miniprot_tpu_torch.pipeline import _emit_query
+    recs = list(read_fastx(faa))[:MESH_PROTEINS]
+    fn = os.path.join(d, "mesh.faa")
+    with open(fn, "wb") as f:
+        f.write(b"".join(b">" + r.name.encode() + b"\n" + r.seq + b"\n"
+                         for r in recs))
+    opt = MapOpt()
+    want = _map(mi, fn, opt, None, threads)["out"]
+    seqs = [np.frombuffer(r.seq, np.uint8) for r in recs]
+    tdist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(d, "mesh_store"),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = dist.make_mesh(1, 1)
+        # the first map also sets up the axis groups' NCCL communicators
+        # (on their first collective); the second is the one reported
+        cold: dict = {}
+        t0 = time.perf_counter()
+        dist.mesh_map_queries(mesh, mi, seqs, opt, engine=GpuExtEngine(opt),
+                              stats=cold)
+        cold_wall = time.perf_counter() - t0
+        engine = GpuExtEngine(opt)
+        st: dict = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        regs = dist.mesh_map_queries(mesh, mi, seqs, opt, engine=engine,
+                                     stats=st)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        tdist.destroy_process_group()
+    buf = io.StringIO()
+    idc = [0]
+    for rec, seq, r in zip(recs, seqs, regs):
+        _emit_query(mi, opt, rec.name, seq, r, idc, buf)
+    if buf.getvalue() != want:
+        fail("mesh: mesh_map_queries output differs from map_file's")
+    for k in ("track_prep", "ext_dp", "scan_cigar_dp", "run_walk"):
+        if launches[k] <= 0:
+            fail(f"mesh: kernel {k} was not launched")
+    # bytes each step must move: pass 1 reads the hashes and two bucket
+    # offsets per hash and writes the counts (int64); pass 2 reads the
+    # hashes, the keep mask, two offsets per hash and one kb entry per
+    # hit, and writes blocks (int64), seed_of (int32) per slot and tot
+    # (int32) per query
+    K, a_cap, rows, chunks = st["K"], st["a_cap"], st["rows"], st["chunks"]
+    nq = rows * chunks
+    count_b = len(seqs) * K * (8 + 16 + 8)
+    gather_b = (nq * K * (8 + 1 + 16) + st["hits"] * 8
+                + nq * a_cap * (8 + 4) + nq * 4)
+    cb, _ = bound(count_b, 0, 1)
+    gb, _ = bound(gather_b, 0, 1)
+    print(f"[mesh] mesh_map_queries on a 1 x 1 NCCL grid, GpuExtEngine on "
+          f"the card: {len(seqs)} proteins byte-identical to map_file "
+          f"({want.count(chr(10))} lines) in {wall:.2f} s; pass 1 (count "
+          f"step) {1e3 * st['count_step_s']:.3f} ms, bound "
+          f"{cb:.4f} ms (bytes); pass 2 (gather step) "
+          f"{1e3 * st['gather_step_s']:.3f} ms over {chunks} chunk(s) of "
+          f"{rows} queries, bound {gb:.4f} ms (bytes; {st['hits']} hits); "
+          f"K {K}, a_cap {a_cap}; DP split {engine.n_device} device / "
+          f"{engine.n_host} host; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; the first map "
+          f"{cold_wall:.2f} s, its count step "
+          f"{1e3 * cold['count_step_s']:.3f} ms and gather step "
+          f"{1e3 * cold['gather_step_s']:.3f} ms", flush=True)
+    return launches
+
+
+def phase_entry():
+    """entry() on the card equal to its plain version and to the host C
+    engine, timed; then dryrun_multichip(1) (one NCCL rank)."""
+    import torch
+
+    from miniprot_tpu_torch import entry
+    fn, args = entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    pfn, pargs = entry.entry("cpu")
+    t0 = time.perf_counter()
+    want = pfn(*pargs)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(got.cpu(), want):
+        fail("entry: the card's result differs from the plain version's")
+    rows = [(int(s), int(i) + 1, int(j) + 1) for s, i, j in got.tolist()]
+    if rows != entry.entry_reference():
+        fail("entry: the card's result differs from the host engine's")
+    ms = time_ms(lambda: fn(*args), reps=20)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    dry = time.perf_counter() - t0
+    print(f"[entry] entry() K7 + K1 at al {entry.AL} (width "
+          f"{entry.AL_PAD}) x {entry.NL} rows x "
+          f"{entry.N_PROBLEMS} problems: exact vs plain and host engine; "
+          f"{ms:.4f} ms a launch (plain {plain_ms:.1f} ms on the CPU); "
+          f"dryrun_multichip(1) on NCCL byte-identical to map_query in "
+          f"{dry:.2f} s (its rank's spawn included)", flush=True)
+
+
 def phase_e2e(genome_mb, n_prot, threads):
     """The default map (PRE_CHUNK at its default, and again at 0), the
     striped-route map and the -O 0 map on both engines, the route-probe
@@ -1362,6 +1647,8 @@ def phase_e2e(genome_mb, n_prot, threads):
         mpi = os.path.join(d, "g.mpi")
         mi.dump(mpi)
         trace_launches = phase_trace(mpi, *subsets[0], d, threads)
+        shard_runs, _ = phase_shards(mi, mpi, faa, host["out"], d, threads)
+        mesh_launches = phase_mesh(mi, faa, d, threads)
         mi_gpu, sk_wall, sk_stages, sk_launches = index_build(fa)
     if gpu["out"] != host["out"]:
         fail("GPU engine output differs from the host engine's")
@@ -1393,7 +1680,8 @@ def phase_e2e(genome_mb, n_prot, threads):
     return {"default": gpu["launches"], "PRE_CHUNK 0": whole["launches"],
             "striped route": striped["launches"], "-O 0": gpu0["launches"],
             "route probe": route_launches, "server": srv_launches,
-            **trace_launches, "index": sk_launches}
+            **trace_launches, **shard_runs, "mesh": mesh_launches,
+            "index": sk_launches}
 
 
 def phase_maps(genome_mb, n_prot, threads, pre_chunks):
@@ -1540,6 +1828,7 @@ def main() -> None:
     phase_flush_no_sync(23)
     phase_bench()
     runs = phase_e2e(args.genome_mb, args.proteins, args.threads)
+    phase_entry()
     for e in entries:
         if "counter" in e:
             # launches: the runs of the paths that take this form (K1 at

@@ -94,6 +94,12 @@ Options:
     -o FILE      write output to FILE instead of stdout
     --resume     with -o: checkpoint after each mini-batch and resume an
                  interrupted run from the last complete batch
+  Multi-host (data-parallel shards over a shared --spool-dir):
+    --shards INT     total number of shard processes [1]
+    --shard-id INT   this process's shard index (0 emits the merge) [0]
+    --spool-dir DIR  shared directory for shard spools; an existing
+                 complete spool is a checkpoint (that shard is skipped),
+                 so use a fresh DIR when inputs or options change
 """
 
 _LONG_OPTS = {
@@ -105,6 +111,7 @@ _LONG_OPTS = {
 _LONG_OPTS_ARG = {
     "xdrop", "outn", "gff-delim", "J2", "outs", "max-skip", "max-intron-out",
     "outc", "ie-coef", "spsc", "spsc0", "spsc-max", "profile-trace",
+    "shards", "shard-id", "spool-dir",
 }
 _SHORT_ARG = "kMLslbTtdcnmKpNOEJCFGegBPwjo"
 
@@ -181,6 +188,9 @@ def _run(argv: list[str], server_parse: bool = False):
     resume = False
     route_probe = False
     trace_dir = None
+    n_shards = 1
+    shard_id = 0
+    spool_dir = None
     set_I = set_G = keep_io = 0
     pos: list[str] = []
     dbg: dict = {}
@@ -243,6 +253,12 @@ def _run(argv: list[str], server_parse: bool = False):
                 mo.sp_null_bonus = s if s < 0 else -s
             elif key == "spsc-max":
                 mo.sp_max_bonus = int(val)
+            elif key == "shards":
+                n_shards = int(val)
+            elif key == "shard-id":
+                shard_id = int(val)
+            elif key == "spool-dir":
+                spool_dir = val
             elif key == "version":
                 print(MP_VERSION)
                 return 0
@@ -362,10 +378,16 @@ def _run(argv: list[str], server_parse: bool = False):
         sysutil.error("--route-probe measures the GPU engine against the "
                       "host engine: it cannot be used with --no-gpu")
         return 1
-    if server_parse and (route_probe or trace_dir is not None):
+    sharded = n_shards > 1 or spool_dir is not None
+    if server_parse and (route_probe or trace_dir is not None or sharded):
         from . import sysutil
-        sysutil.error("--route-probe and --profile-trace apply to a map "
-                      "run, not to the server")
+        sysutil.error("--route-probe, --profile-trace and --shards apply "
+                      "to a map run, not to the server")
+        return 1
+    if sharded and (route_probe or trace_dir is not None):
+        from . import sysutil
+        sysutil.error("--route-probe and --profile-trace apply to a "
+                      "single-process map, not to --shards")
         return 1
     if not pos or (len(pos) == 1 and fn_idx is None and not server_parse):
         sys.stderr.write(USAGE)
@@ -398,6 +420,40 @@ def _run(argv: list[str], server_parse: bool = False):
         return mi, mo, n_threads, device
     out = sys.stdout
     ckpt = None
+    if sharded:
+        # multi-process data-parallel run (parallel/runner.py): each
+        # shard is an independent CLI process over a shared --spool-dir
+        # mapping on the same device as a plain run; the shard-0 process
+        # performs the ordered k-way merge emit.
+        from . import sysutil
+        if spool_dir is None:
+            sysutil.error("--shards requires --spool-dir")
+            return 1
+        if not 0 <= shard_id < n_shards:
+            sysutil.error("--shard-id must be in [0, --shards)")
+            return 1
+        if len(pos) != 2:
+            sysutil.error("--shards supports exactly one query file")
+            return 1
+        if resume:
+            sysutil.error("--shards uses spool files as checkpoints; "
+                          "rerun failed shards instead of --resume")
+            return 1
+        os.makedirs(spool_dir, exist_ok=True)
+        if fn_out is not None and shard_id == 0:
+            out = open(fn_out, "w")
+        from .parallel.runner import map_file_multihost
+        try:
+            map_file_multihost(mi, pos[1], mo, shard_id, n_shards,
+                               spool_dir, out, resume=True, device=device)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+        sysutil.log("main", "Real time: %.3f sec; CPU: %.3f sec; "
+                    "Peak RSS: %.3f GB", sysutil.realtime(),
+                    sysutil.cputime(), sysutil.peakrss_gb())
+        sysutil.profiler.report()
+        return 0
     if resume and fn_out is None:
         from . import sysutil
         sysutil.error("--resume requires -o FILE")

@@ -543,3 +543,29 @@ class _Flight:
         if self._span is not None:
             wave = self._span[0].elapsed_time(self._span[1]) / 1e3
         profiler.add_device_block(wave, exposed=exposed)
+
+
+def pump_align_generators(gens: list, engine: GpuExtEngine) -> None:
+    """Advance align_region_steps generators in lockstep, batching their
+    DP requests through the engine (port of
+    miniprot_tpu.device.pump_align_generators).  Each generator yields a
+    LIST of requests per round and receives the matching list of
+    results; each round's batches launch together and are collected in
+    one wave (engine.flush)."""
+    waiting = {}
+    for gi, g in enumerate(gens):
+        try:
+            waiting[gi] = next(g)
+        except StopIteration:
+            pass
+    while waiting:
+        handles = {gi: [engine.submit(req) for req in reqs]
+                   for gi, reqs in waiting.items()}
+        results = engine.flush()
+        nxt = {}
+        for gi, hs in handles.items():
+            try:
+                nxt[gi] = gens[gi].send([results[h] for h in hs])
+            except StopIteration:
+                pass
+        waiting = nxt

@@ -88,3 +88,25 @@ def test_batch_without_device_resolves_to_the_card(cls):
         with pytest.raises(RuntimeError, match="compute capability"):
             klass(*args, **kw)
     assert klass(*args, device="cpu", **kw).device == torch.device("cpu")
+
+
+_MODULE_PROBE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(",".join(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith("jax.")
+                      or m == "miniprot_tpu"
+                      or m.startswith("miniprot_tpu."))))
+"""
+
+
+@pytest.mark.parametrize("mod", ["miniprot_tpu_torch.parallel.runner",
+                                 "miniprot_tpu_torch.parallel.dist",
+                                 "miniprot_tpu_torch.entry"])
+def test_parallel_and_entry_modules_leave_jax_out(mod):
+    """The shard runner, the mesh layer and the entry points, each
+    imported alone, bring in neither jax nor miniprot_tpu."""
+    r = subprocess.run([sys.executable, "-c", _MODULE_PROBE, mod], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "", f"{mod} imported: {r.stdout.strip()}"
