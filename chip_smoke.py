@@ -1487,9 +1487,10 @@ def phase_mesh(mi, faa, d, threads):
     first MESH_PROTEINS proteins (the rank's pre_align is serial),
     twice: the first map also sets up the NCCL communicators, the
     second's output must be byte-identical to map_file's on those
-    proteins, and its two steps' seconds are printed against their byte
-    bounds, with K, a_cap and the pass-2 chunks.  Returns the second
-    map's launches."""
+    proteins, and its two steps' device ms (CUDA events around each
+    step) are printed against their byte bounds, beside their seconds
+    on the host clock (upload, step and copy back), with K, a_cap and
+    the pass-2 chunks.  Returns the second map's launches."""
     import datetime
 
     import numpy as np
@@ -1555,16 +1556,18 @@ def phase_mesh(mi, faa, d, threads):
     print(f"[mesh] mesh_map_queries on a 1 x 1 NCCL grid, GpuExtEngine on "
           f"the card: {len(seqs)} proteins byte-identical to map_file "
           f"({want.count(chr(10))} lines) in {wall:.2f} s; pass 1 (count "
-          f"step) {1e3 * st['count_step_s']:.3f} ms, bound "
-          f"{cb:.4f} ms (bytes); pass 2 (gather step) "
-          f"{1e3 * st['gather_step_s']:.3f} ms over {chunks} chunk(s) of "
-          f"{rows} queries, bound {gb:.4f} ms (bytes; {st['hits']} hits); "
-          f"K {K}, a_cap {a_cap}; DP split {engine.n_device} device / "
-          f"{engine.n_host} host; launches "
+          f"step) device {st['count_step_ms']:.4f} ms, bound {cb:.4f} ms "
+          f"(bytes), {st['count_step_ms'] / cb:.1f}x; pass 2 (gather step) "
+          f"device {st['gather_step_ms']:.4f} ms over {chunks} chunk(s) of "
+          f"{rows} queries, bound {gb:.4f} ms (bytes; {st['hits']} hits), "
+          f"{st['gather_step_ms'] / gb:.1f}x; host clock (upload, step, "
+          f"copy back) {1e3 * st['count_step_s']:.3f} ms and "
+          f"{1e3 * st['gather_step_s']:.3f} ms; K {K}, a_cap {a_cap}; DP "
+          f"split {engine.n_device} device / {engine.n_host} host; launches "
           f"{ {k: v for k, v in launches.items() if v} }; the first map "
-          f"{cold_wall:.2f} s, its count step "
-          f"{1e3 * cold['count_step_s']:.3f} ms and gather step "
-          f"{1e3 * cold['gather_step_s']:.3f} ms", flush=True)
+          f"{cold_wall:.2f} s, its count step device "
+          f"{cold['count_step_ms']:.4f} ms and gather step device "
+          f"{cold['gather_step_ms']:.4f} ms", flush=True)
     return launches
 
 

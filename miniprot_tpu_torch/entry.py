@@ -10,8 +10,9 @@ dryrun_multichip(n) starts n ranks (one process each, on torch.
 distributed), forms the 2-D grid (index-sharded "g" axis x
 query-data-parallel "q" axis), maps a small synthetic workload with
 parallel.dist.mesh_map_queries (the seed->anchor gather on the ranks'
-devices, chain/refine/align on the host, as the JAX dry run maps it),
-and requires output byte-identical to a per-query map_query run.
+devices, chain/refine on the host, the alignment rounds' DPs on the
+ranks' cards, or on the host engine on the CPU), and requires output
+byte-identical to a per-query map_query run.
 
     python -m miniprot_tpu_torch.entry [--cpu]
 """
@@ -100,10 +101,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     when there are fewer cards than ranks, or none of sm_90), or on
     gloo for device="cpu"; runs the mesh map (index hash-sharded on
     "g", queries on "q", the default MapOpt; the two lookup passes on
-    the rank's device, the alignment rounds on the host engine, as in
-    the JAX dry run) and requires, on rank 0, the emitted output
-    byte-identical to the per-query map_query run, with at least 6
-    lines.  A rank's error raises here."""
+    the rank's device; the alignment rounds' DPs on an engine on the
+    rank's card, or with device="cpu" on the host C engine, as the JAX
+    dry run maps them) and requires, on rank 0, the
+    emitted output byte-identical to the per-query map_query run, with
+    at least 6 lines.  A rank's error raises here."""
     import os
     import tempfile
 
@@ -161,7 +163,8 @@ def _dryrun_rank(rank: int, n: int, dev_type: str, mpi: str, faa: str,
         opt = MapOpt()
         recs = list(read_fastx(faa))
         seqs = [np.frombuffer(r.seq, np.uint8) for r in recs]
-        mesh_regs = dist.mesh_map_queries(mesh, mi, seqs, opt)
+        mesh_regs = dist.mesh_map_queries(
+            mesh, mi, seqs, opt, engine="mesh" if dev_type == "cuda" else None)
         if rank != 0:
             return
 

@@ -265,7 +265,28 @@ def _pow2_at_least(n: int, lo: int = 64) -> int:
     return v
 
 
-def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
+def _mark(dev: torch.device):
+    """A CUDA event recorded on ``dev``'s current stream (None off the
+    card): the start of a step's device time."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _elapsed_ms(start) -> float | None:
+    """Device ms from ``start`` (a _mark) to now on the same stream; the
+    collectives' streams are joined to it, so their time is inside."""
+    if start is None:
+        return None
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, engine="mesh",
                      chunk_elems: int = 1 << 25, stats: dict | None = None
                      ) -> list:
     """Map a batch of proteins with the seed->anchor stage sharded on the
@@ -280,9 +301,12 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
     protein arrays) and gets the per-query region lists of all of them,
     in input order.
 
-    engine: this rank's device.GpuExtEngine: the alignment round's DPs
-    then batch onto its kernels (pump_align_generators); None runs the
-    host DP engine (map_query).  An engine error raises.
+    engine: "mesh" (the default) builds a device.GpuExtEngine on the
+    rank's device, ``mesh.device`` (its card on NCCL, the kernels' plain
+    versions on gloo); the alignment round's DPs then batch onto its
+    kernels (pump_align_generators).  A GpuExtEngine given here is used
+    as it is; None runs the host DP engine (map_query).  An engine error
+    raises.
 
     chunk_elems bounds the pass-2 buffer (queries per chunk x n_g x
     a_cap over the grid) so one pathological batch cannot exhaust a
@@ -290,8 +314,10 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
 
     stats: when given, receives K, a_cap, the pass-2 chunk count and
     its query rows per chunk on this rank, the hits pass 2 gathered
-    here, and the seconds of the two steps (each from its inputs' upload
-    to its results' arrival in host memory)."""
+    here, each step's device ms on the card (CUDA events around the
+    step's own ops and collectives, summed over pass 2's chunks; None
+    off the card), and each step's seconds on the host clock (from its
+    inputs' upload to its results' arrival in host memory)."""
     import time
 
     from .. import native
@@ -303,7 +329,7 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
     n_q = mesh.shape["q"]
     dev = mesh.device
     io = mi.opt
-    env = env or DpEnv(opt)
+    env = DpEnv(opt)
 
     # this rank's q-slice of the padded query rows; every rank of the
     # world must agree on the padded count and on K
@@ -340,7 +366,11 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
     # ---- pass 1: exact per-(query, seed) occupancies (summed over "g")
     t0 = time.perf_counter()
     count_step = sharded_seed_count_step(mesh)
-    cnt = count_step(torch.from_numpy(hashes).to(dev), ki_g).cpu().numpy()
+    hashes_d = torch.from_numpy(hashes).to(dev)
+    ev = _mark(dev)
+    cnt = count_step(hashes_d, ki_g)
+    ms_count = _elapsed_ms(ev)
+    cnt = cnt.cpu().numpy()
     t_count = time.perf_counter() - t0
 
     # host: boxplot max_occ per query -> keep mask; exact per-(query,
@@ -370,6 +400,7 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
     gather_step = sharded_anchor_gather_step(mesh, a_cap)
     anchors: dict[int, np.ndarray] = {}
     t_gather = 0.0
+    ms_gather = None if dev.type != "cuda" else 0.0
     hits = 0
     for c in range(n_chunks):
         r0 = c * rows
@@ -379,9 +410,11 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
             hc = np.pad(hc, ((0, pad), (0, 0)))
             kc = np.pad(kc, ((0, pad), (0, 0)))
         t0 = time.perf_counter()
-        blocks, seed_of, tot = gather_step(
-            torch.from_numpy(hc).to(dev), torch.from_numpy(kc).to(dev),
-            ki_g, kb_g)
+        hc_d, kc_d = torch.from_numpy(hc).to(dev), torch.from_numpy(kc).to(dev)
+        ev = _mark(dev)
+        blocks, seed_of, tot = gather_step(hc_d, kc_d, ki_g, kb_g)
+        if ev is not None:
+            ms_gather += _elapsed_ms(ev)
         blocks = blocks.cpu().numpy()
         seed_of = seed_of.cpu().numpy()
         tot = tot.cpu().numpy()
@@ -406,7 +439,8 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
                            else np.empty(0, np.uint64))
     if stats is not None:
         stats.update(K=K, a_cap=a_cap, chunks=n_chunks, rows=rows,
-                     hits=hits, count_step_s=t_count,
+                     hits=hits, count_step_ms=ms_count,
+                     gather_step_ms=ms_gather, count_step_s=t_count,
                      gather_step_s=t_gather)
 
     # the q-slice's host work, round-robin over its n_g peers
@@ -418,8 +452,11 @@ def mesh_map_queries(mesh: Mesh, mi, seqs, opt, *, env=None, engine=None,
         # seed/chain/refine on the host from the gathered anchors, then
         # the alignment round batched onto the engine's kernels
         from ..align import align_region_steps
-        from ..device import pump_align_generators
+        from ..device import GpuExtEngine, pump_align_generators
         from ..mapper import finish_align, pre_align
+
+        if engine == "mesh":
+            engine = GpuExtEngine(opt, device=dev)
 
         per_query = []
         gens = []

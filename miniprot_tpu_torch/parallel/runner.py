@@ -40,6 +40,7 @@ from __future__ import annotations
 import heapq
 import os
 import pickle
+import time
 
 import numpy as np
 
@@ -93,36 +94,39 @@ def _rewrite_ids(text: str, base: int) -> str:
     return "".join(parts)
 
 
+# the filesystem barrier's limit and its polling period, in seconds
+SPOOL_TIMEOUT_S = 86400.0
+SPOOL_POLL_S = 0.5
+
+
 def spool_path(spool_dir: str, process_id: int) -> str:
     return os.path.join(spool_dir, f"shard{process_id:05d}.pkl")
 
 
-def wait_for_spools(spool_dir: str, num_processes: int,
-                    timeout: float = 86400.0, poll: float = 0.5) -> None:
+def wait_for_spools(spool_dir: str, num_processes: int) -> None:
     """Filesystem barrier: block until every shard spool exists.
 
     Used when no process group coordinates the processes (independent
     CLI launches over a shared filesystem).  Spool files are written to
     a .tmp name and os.replace()d, so existence implies the shard is
     complete."""
-    import time as _time
-    deadline = _time.monotonic() + timeout
+    deadline = time.monotonic() + SPOOL_TIMEOUT_S
     missing = set(range(num_processes))
     while missing:
         missing = {pid for pid in missing
                    if not os.path.exists(spool_path(spool_dir, pid))}
         if not missing:
             return
-        if _time.monotonic() > deadline:
+        if time.monotonic() > deadline:
             raise TimeoutError(
                 f"shards never finished: {sorted(missing)} "
-                f"(no spool file after {timeout:.0f}s)")
-        _time.sleep(poll)
+                f"(no spool file after {SPOOL_TIMEOUT_S:.0f}s)")
+        time.sleep(SPOOL_POLL_S)
 
 
 def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
               num_processes: int, spool_dir: str,
-              resume: bool = False, device=None) -> int:
+              resume: bool = False, device="cuda") -> int:
     """Map queries with global index % num_processes == process_id,
     streaming one record per query to the shard spool in ascending query
     order.
@@ -131,17 +135,18 @@ def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
     atomic .tmp -> final rename makes an existing spool a complete,
     trustworthy checkpoint; docstring at module top).
 
-    device: "cuda" batches this shard's alignment-round DPs onto the
-    card through a GpuExtEngine (pipeline.map_batch_gpu), "cpu" runs the
-    same engine on the kernels' plain versions, None maps on the host C
-    engine; the spooled records are identical either way.  An engine
-    error raises (no host fallback)."""
+    device: "cuda" (the default) batches this shard's alignment-round
+    DPs onto the card through a GpuExtEngine (pipeline.map_batch_gpu)
+    and raises without one, "cpu" runs the same engine on the kernels'
+    plain versions, None maps on the host C engine; the spooled records
+    are identical either way.  An engine error raises (no host
+    fallback)."""
+    if resume and os.path.exists(spool_path(spool_dir, process_id)):
+        return -1
     engine = None
     if device is not None:
         from ..device import GpuExtEngine
         engine = GpuExtEngine(opt, device=device)
-    if resume and os.path.exists(spool_path(spool_dir, process_id)):
-        return -1
     env = DpEnv(opt)
     reader = BatchReader(fn)
     par_emit = emit_is_parallel(opt)
@@ -207,7 +212,7 @@ def _iter_spool(path: str):
                 return
 
 
-def emit_merged(mi: Index, opt: MapOpt, num_processes: int, spool_dir: str,
+def emit_merged(opt: MapOpt, num_processes: int, spool_dir: str,
                 out) -> int:
     """Process-0 ordered emit: streaming k-way merge of the shard spools
     in global query order, through the standard per-query output
@@ -226,43 +231,35 @@ def emit_merged(mi: Index, opt: MapOpt, num_processes: int, spool_dir: str,
         elif len(rec) == 3:        # GFF/GTF: splice in the global ids
             out.write(_rewrite_ids(rec[1], id_counter[0]))
             id_counter[0] += rec[2]
-        else:                      # legacy spool: Region records
-            qi, name, seq_bytes, regs = rec
-            seq = np.frombuffer(seq_bytes, dtype=np.uint8)
-            _emit_query(mi, opt, name, seq, regs, id_counter, out)
+        else:
+            raise ValueError(f"spool record of {len(rec)} fields: not a "
+                             "map_shard spool")
         n += 1
     return n
 
 
 def map_file_multihost(mi: Index, fn: str, opt: MapOpt, process_id: int,
                        num_processes: int, spool_dir: str, out,
-                       barrier=None, resume: bool = False,
-                       device=None) -> int:
-    """Full multi-process run for one process: map my shard, barrier,
-    and (on process 0) emit the merged ordered output.
+                       resume: bool = False, device="cuda") -> int:
+    """Full multi-process run for one process: map my shard (on
+    ``device``, as map_shard), barrier, and (on process 0) emit the
+    merged ordered output.
 
-    barrier: callable; defaults to torch.distributed.barrier when a
-    process group is initialized, else the filesystem barrier (process
-    0 waits for every shard's spool file, the others return): the mode
-    the CLI's --shards flag uses, where each shard is an independent
-    process over a shared spool directory."""
+    The barrier is torch.distributed.barrier when a process group is
+    initialized, else the filesystem barrier (process 0 waits for every
+    shard's spool file, the others return): the mode the CLI's --shards
+    flag uses, where each shard is an independent process over a shared
+    spool directory."""
     n = map_shard(mi, fn, opt, process_id, num_processes, spool_dir,
                   resume=resume, device=device)
-    if barrier is None:
-        if num_processes > 1:
-            import torch.distributed as tdist
-            if tdist.is_available() and tdist.is_initialized():
-                barrier = tdist.barrier
-            elif process_id == 0:
-                barrier = lambda: wait_for_spools(spool_dir, num_processes)
-            else:
-                # fs mode: a non-zero shard is done once its own spool
-                # is renamed; only the emitter must wait for everyone
-                barrier = lambda: None
-        else:
-            barrier = lambda: None
+    if num_processes > 1:
+        import torch.distributed as tdist
+        if tdist.is_available() and tdist.is_initialized():
+            tdist.barrier()
+        elif process_id == 0:
+            wait_for_spools(spool_dir, num_processes)
+        # fs mode: a non-zero shard is done once its own spool is
+        # renamed; only the emitter waits for everyone
     if process_id == 0:
-        barrier()
-        return emit_merged(mi, opt, num_processes, spool_dir, out)
-    barrier()
+        return emit_merged(opt, num_processes, spool_dir, out)
     return n

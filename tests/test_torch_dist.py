@@ -80,8 +80,8 @@ try:
     seqs = [np.frombuffer(r.seq, np.uint8) for r in recs]
     stats = {}
     # a tiny chunk budget makes pass 2 run more than one chunk
-    regs = dist.mesh_map_queries(mesh, mi, seqs, opt, chunk_elems=1 << 10,
-                                 stats=stats)
+    regs = dist.mesh_map_queries(mesh, mi, seqs, opt, engine=None,
+                                 chunk_elems=1 << 10, stats=stats)
     buf = io.StringIO()
     idc = [0]
     for rec, seq, r in zip(recs, seqs, regs):
@@ -252,9 +252,10 @@ def test_dryrun_multichip_gloo(n):
 def test_mesh_engine_path_and_engine_error(tmp_path, monkeypatch):
     """A one-rank gloo world in this process: mesh_map_queries with a
     GpuExtEngine on the kernels' plain versions (pre_align on the
-    gathered anchors, the align round through pump_align_generators)
-    gives the host map's bytes; an engine whose launch raises makes it
-    raise; a grid of another size than the world is refused."""
+    gathered anchors, the align round through pump_align_generators),
+    given or built by default on the mesh's device, gives the host map's
+    bytes; an engine whose launch raises makes it raise; a grid of
+    another size than the world is refused."""
     import datetime
 
     import torch.distributed as tdist
@@ -293,10 +294,26 @@ def test_mesh_engine_path_and_engine_error(tmp_path, monkeypatch):
             dist.make_mesh(2, 1)
         mesh = dist.make_mesh(1, 1)
         engine = tdev.GpuExtEngine(opt, "cpu")
-        got = dist.mesh_map_queries(mesh, mi, seqs, opt, engine=engine)
+        stats = {}
+        got = dist.mesh_map_queries(mesh, mi, seqs, opt, engine=engine,
+                                    stats=stats)
         assert engine.n_device > 0
+        # device ms come from CUDA events only: none on the CPU
+        assert stats["count_step_ms"] is None is stats["gather_step_ms"]
         want = emit([map_query(mi, s, opt) for s in seqs])
         assert emit(got) == want and want.count("\n") >= 1
+
+        built = []
+        init = tdev.GpuExtEngine.__init__
+
+        def spy(self, *a, **kw):
+            init(self, *a, **kw)
+            built.append(self)
+
+        monkeypatch.setattr(tdev.GpuExtEngine, "__init__", spy)
+        assert emit(dist.mesh_map_queries(mesh, mi, seqs, opt)) == want
+        assert [e.device for e in built] == [mesh.device]
+        assert built[0].n_device > 0
 
         def launch(self, batch):
             raise RuntimeError("mp_scan_cigar: CUDA error 700")
@@ -311,13 +328,25 @@ def test_mesh_engine_path_and_engine_error(tmp_path, monkeypatch):
 
 def test_entry_matches_host_engine_and_needs_a_card(entry_out):
     """entry(device="cpu") (K7 + K1's plain versions at the JAX entry's
-    shape, al 64 x 264 rows x 128 problems) gives the host C engine's
-    (score, ends) for every problem; entry() asks for the card and
-    raises without one."""
+    shape, al 64 x 264 rows x 128 problems) gives, for every problem,
+    the (score, ends) of the JAX package's host C engine on the same
+    problem and direction, and so does the port's entry_reference (what
+    the card's entry() is held to); entry() asks for the card and raises
+    without one."""
+    from miniprot_tpu import options as jopt
+    from miniprot_tpu.align import DpEnv as JDpEnv
+    from miniprot_tpu.native import DPF_EXT_LEFT, DPF_EXT_RIGHT
     from miniprot_tpu_torch import kernels
+    jo = jopt.MapOpt()
+    jenv = JDpEnv(jo)
+    want = [tuple(jenv.dp(nsq, asq, DPF_EXT_LEFT if left else DPF_EXT_RIGHT,
+                          io=jo.io)[:3])
+            for nsq, asq, left in entry._problems()]
     assert entry_out.shape == (entry.N_PROBLEMS, 3)
     got = [(int(s), int(i) + 1, int(j) + 1) for s, i, j in entry_out]
-    assert got == entry.entry_reference()
+    assert got == want
+    assert entry.entry_reference() == want
+    assert any(left for _, _, left in entry._problems())
     assert max(s for s, _, _ in got) > 100   # homologous problems
     if not kernels.on_gpu_backend():
         with pytest.raises(RuntimeError, match="compute capability"):

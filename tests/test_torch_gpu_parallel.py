@@ -65,13 +65,13 @@ def test_dryrun_multichip_one_card(cuda_card):
 
 def test_mesh_map_on_card_engine(cuda_card, workload, tmp_path):
     """A 1 x 1 NCCL grid: the two lookup passes on the card, the
-    alignment rounds on a GpuExtEngine on the card; bytes equal to
-    map_file on the host engine."""
+    alignment rounds on the GpuExtEngine mesh_map_queries builds on the
+    card by default; bytes equal to map_file on the host engine; the
+    steps' device ms from CUDA events."""
     import torch.distributed as tdist
 
     from miniprot_tpu_torch import kernels
     from miniprot_tpu_torch.bseq import read_fastx
-    from miniprot_tpu_torch.device import GpuExtEngine
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt
     from miniprot_tpu_torch.parallel import dist
@@ -90,8 +90,8 @@ def test_mesh_map_on_card_engine(cuda_card, workload, tmp_path):
         mesh = dist.make_mesh(1, 1)
         assert mesh.device.type == "cuda"
         kernels.reset_launch_counts()
-        regs = dist.mesh_map_queries(mesh, mi, seqs, opt,
-                                     engine=GpuExtEngine(opt))
+        stats = {}
+        regs = dist.mesh_map_queries(mesh, mi, seqs, opt, stats=stats)
         launches = kernels.launch_counts()
     finally:
         tdist.destroy_process_group()
@@ -101,6 +101,7 @@ def test_mesh_map_on_card_engine(cuda_card, workload, tmp_path):
         _emit_query(mi, opt, rec.name, seq, r, idc, buf)
     assert buf.getvalue() == want.getvalue()
     assert launches["ext_dp"] > 0 and launches["track_prep"] > 0
+    assert stats["count_step_ms"] > 0 and stats["gather_step_ms"] > 0
 
 
 def test_cli_shards_share_the_card(cuda_card, workload, tmp_path):

@@ -92,7 +92,7 @@ try:
     opt = MapOpt()
     opt.flag |= flag
     with open(out_path if pid == 0 else os.devnull, "w") as out:
-        map_file_multihost(mi, faa, opt, pid, NP, spool, out)
+        map_file_multihost(mi, faa, opt, pid, NP, spool, out, device=None)
 finally:
     tdist.destroy_process_group()
 print("MAP-OK-" + str(pid), flush=True)
@@ -233,9 +233,11 @@ def test_shard_engine_spool_matches_host(tmp_path, small):
 
 def test_shard_engine_error_raises(tmp_path, small, monkeypatch):
     """An engine whose launch raises makes map_shard raise (no host
-    fallback) and leaves no complete spool behind; a CLI shard that asks
-    for the card where there is none fails instead of mapping on the
-    host."""
+    fallback) and leaves no complete spool behind; a shard left to its
+    default device, or a CLI shard without --no-gpu, asks for the card
+    and fails where there is none instead of mapping on the host; a
+    shard whose spool is already complete is skipped before it builds an
+    engine."""
     mi, faa, opt = small
 
     def launch(self, batch):
@@ -255,7 +257,11 @@ def test_shard_engine_error_raises(tmp_path, small, monkeypatch):
     with pytest.raises(RuntimeError, match="compute capability"):
         cli.main(["--shards", "2", "--shard-id", "1", "--spool-dir", d, fa,
                   faa])
+    with pytest.raises(RuntimeError, match="compute capability"):
+        runner.map_file_multihost(mi, faa, opt, 1, 2, d, io.StringIO())
     assert not os.path.exists(runner.spool_path(d, 1))
+    runner.map_shard(mi, faa, opt, 1, 2, d, device=None)
+    assert runner.map_shard(mi, faa, opt, 1, 2, d, resume=True) == -1
 
 
 @pytest.mark.parametrize("mode", ["paf", "gff"])
@@ -270,16 +276,28 @@ def test_merged_output_matches_jax_runner(tmp_path, workload, mode):
     fa, faa, mpi = workload
     flag = FLAGS[mode]
 
-    def run(mod, mi, opt_mod, spool):
+    def run(mod, mi, opt_mod, spool, **host):
         opt = opt_mod.MapOpt()
         opt.flag |= flag
         os.makedirs(spool)
         for pid in (1, 2, 0):
             buf = io.StringIO()
-            mod.map_file_multihost(mi, faa, opt, pid, 3, spool, buf)
+            mod.map_file_multihost(mi, faa, opt, pid, 3, spool, buf, **host)
         return buf.getvalue()
 
     want = run(jrunner, jidx.Index.build(fa, jopt.IdxOpt()), jopt,
                str(tmp_path / "jax"))
-    got = run(runner, Index.load(mpi, IdxOpt()), topt, str(tmp_path / "port"))
+    got = run(runner, Index.load(mpi, IdxOpt()), topt, str(tmp_path / "port"),
+              device=None)
     assert got == want and got.count("\n") >= 12
+
+
+def test_emit_merged_refuses_a_foreign_spool(tmp_path):
+    """emit_merged reads the 2- and 3-field records map_shard writes and
+    raises on any other record instead of guessing its layout."""
+    d = str(tmp_path)
+    with open(runner.spool_path(d, 0), "wb") as f:
+        pickle.dump((0, "q0\n"), f)
+        pickle.dump((1, "q1", b"SEQ", []), f)
+    with pytest.raises(ValueError, match="4 fields"):
+        runner.emit_merged(MapOpt(), 1, d, io.StringIO())
