@@ -76,7 +76,17 @@ Phases (any failure exits non-zero and prints no result):
      0's output equal to map_file's, each shard's wall, proteins/s, DP
      split, peak planes in flight and seconds before its first launch
      (interpreter and imports, CUDA context, library load, index load,
-     engine construction); [mesh]: parallel.dist.mesh_map_queries on a
+     engine construction); [daemon]: python -m miniprot_tpu_torch.daemon
+     --warm on the card (seconds to ready, warm seconds and shapes), one
+     CLI client through MINIPROT_TPU_DAEMON_SOCK over every protein
+     (PAF byte-identical to the host engine's, proteins/s beside the
+     direct map, seconds to its first launch by part), then --shards 4
+     as four concurrent clients (shard 0's output equal to map_file's),
+     no client initializing CUDA or launching a kernel itself, the
+     daemon's launches of K7, K1, K2 and K3 (its ping before and after
+     each run), its peak planes in flight at or under its cap, one
+     "bench ext" through it, --stop and its exit 0; [mesh]:
+     parallel.dist.mesh_map_queries on a
      1 x 1 NCCL grid with a GpuExtEngine on the card over the first 500
      proteins, equal to map_file's output, the two lookup steps' seconds
      against their byte bounds.  Each run
@@ -123,9 +133,10 @@ N_CTG = 4
 
 
 CUDA_BIN = "/usr/local/cuda/bin/"
-# the multi-process paths (the [shards] and [mesh] phases) that launch
-# K7, K1, K2 and K3 besides the single-process maps
-PARALLEL_PATHS = ("shards PAF", "shards GFF", "mesh")
+# the multi-process paths (the [shards], [mesh] and [daemon] phases)
+# that launch K7, K1, K2 and K3 besides the single-process maps
+PARALLEL_PATHS = ("shards PAF", "shards GFF", "mesh", "daemon",
+                  "daemon shards")
 # a SASS instruction line of cuobjdump: its address, an optional guard
 # predicate, the opcode with its modifiers
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Za-z0-9_.]*)")
@@ -1332,30 +1343,33 @@ def phase_trace(mpi, faa, want, d, threads):
     return runs
 
 
-# one CLI shard process of the [shards] phase: cli.main with the CUDA
-# context and the kernel library set up first (each timed), the index
-# load and the engine's construction timed inside, the launch counts from
-# 0, and the seconds from the parent's spawn to the first flush_begin
-# (the first launch) written with the engine's counters to a JSON file
-SHARD_RUN = r"""
+# one CLI process of the [shards] and [daemon] phases: cli.main with,
+# in mode "direct", the CUDA context and the kernel library set up first
+# (each timed; a "daemon" client has neither), the index load and the
+# engine's construction timed inside, the launch counts from 0, the
+# seconds from the parent's spawn to the first flush_begin (the first
+# launch), the engine's counters (pipeline._engine_stats) and whether
+# the process initialized CUDA, written to a JSON file
+CLIENT_RUN = r"""
 import json, sys, time
-out_json, t_spawn = sys.argv[1], float(sys.argv[2])
+out_json, t_spawn, mode = sys.argv[1], float(sys.argv[2]), sys.argv[3]
 import torch
-rec = {"torch_s": time.time() - t_spawn}
-from miniprot_tpu_torch import cli, device, kernels
+rec = {"torch_s": time.time() - t_spawn, "context_s": 0.0, "library_s": 0.0}
+from miniprot_tpu_torch import cli, device, kernels, pipeline
 rec["start_s"] = time.time() - t_spawn
-t0 = time.time()
-torch.cuda.init()
-torch.empty(1, device="cuda")
-torch.cuda.synchronize()
-rec["context_s"] = time.time() - t0
-t0 = time.time()
-kernels.lib()
-rec["library_s"] = time.time() - t0
-engines = []
+if mode == "direct":
+    t0 = time.time()
+    torch.cuda.init()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    rec["context_s"] = time.time() - t0
+    t0 = time.time()
+    kernels.lib()
+    rec["library_s"] = time.time() - t0
 load0 = cli.Index.load
 init0 = device.GpuExtEngine.__init__
 flush0 = device.GpuExtEngine.flush_begin
+stats0 = pipeline._engine_stats
 
 
 def load(*a, **k):
@@ -1369,7 +1383,6 @@ def init(self, *a, **k):
     t0 = time.time()
     init0(self, *a, **k)
     rec["engine_s"] = time.time() - t0
-    engines.append(self)
 
 
 def flush_begin(self):
@@ -1377,18 +1390,68 @@ def flush_begin(self):
     return flush0(self)
 
 
+def engine_stats(engine, stats):
+    st = {} if stats is None else stats
+    stats0(engine, st)
+    rec.update({k: v for k, v in st.items() if k in (
+        "n_device", "n_host", "peak_pending_tb", "launch_s", "decode_s",
+        "daemon", "daemon_batches", "daemon_launches", "daemon_wait_s",
+        "daemon_peak_pending_tb", "daemon_pending_cap")})
+
+
 cli.Index.load = load
 device.GpuExtEngine.__init__ = init
 device.GpuExtEngine.flush_begin = flush_begin
+pipeline._engine_stats = engine_stats
 kernels.reset_launch_counts()
 t0 = time.time()
-rc = cli.main(sys.argv[3:])
+rc = cli.main(sys.argv[4:])
 rec.update(rc=rc, wall_s=time.time() - t0, launches=kernels.launch_counts(),
-           n_device=engines[0].n_device, n_host=engines[0].n_host,
-           peak_pending_tb=engines[0].peak_pending_tb)
+           cuda_initialized=torch.cuda.is_initialized())
 with open(out_json, "w") as f:
     json.dump(rec, f)
 """
+
+
+def _run_clients(tag, mode, argvs, d, env=None):
+    """CLIENT_RUN in ``mode`` once per argv of ``argvs``, all started
+    together; fails unless each exits 0.  Returns their records."""
+    jsons = [os.path.join(d, f"{tag.replace(' ', '_')}{i}.json")
+             for i in range(len(argvs))]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLIENT_RUN, js, repr(time.time()), mode,
+         *argv], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for js, argv in zip(jsons, argvs)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    recs = []
+    for i, (p, err, js) in enumerate(zip(procs, errs, jsons)):
+        if p.returncode != 0:
+            fail(f"{tag}: process {i} exited {p.returncode}: {err[-2000:]}")
+        with open(js) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _start_line(rec) -> str:
+    """A client's seconds from spawn to its first launch, by part."""
+    rest = (rec["first_launch_s"] - rec["start_s"] - rec["context_s"]
+            - rec["library_s"] - rec["index_load_s"] - rec["engine_s"])
+    return (f"{rec['first_launch_s']:.2f} s from spawn to the first "
+            f"launch: interpreter and import torch {rec['torch_s']:.2f}, "
+            f"the package's imports {rec['start_s'] - rec['torch_s']:.2f}, "
+            f"CUDA context {rec['context_s']:.2f}, library load "
+            f"{rec['library_s']:.3f}, index load {rec['index_load_s']:.3f} "
+            f"(mapped), engine construction {rec['engine_s']:.3f}, the rest "
+            f"(the first chunk's pre_align) {rest:.2f}")
+
+
 N_SHARDS = 2
 
 
@@ -1416,36 +1479,16 @@ def phase_shards(mi, mpi, faa, want_paf, d, threads):
     for mode, flags in (("PAF", []), ("GFF", ["--gff"])):
         spool = os.path.join(d, f"spool_{mode}")
         out = os.path.join(d, f"shards.{mode.lower()}")
-        jsons = [os.path.join(d, f"shard{i}_{mode}.json")
-                 for i in range(N_SHARDS)]
-        procs = []
-        for i in range(N_SHARDS):
-            argv = [*flags, "--shards", str(N_SHARDS), "--shard-id", str(i),
-                    "--spool-dir", spool, *(["-o", out] if i == 0 else []),
-                    mpi, faa]
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", SHARD_RUN, jsons[i], repr(time.time()),
-                 *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        try:
-            errs = [p.communicate(timeout=600)[1] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for i, (p, err) in enumerate(zip(procs, errs)):
-            if p.returncode != 0:
-                fail(f"shards {mode}: shard {i} exited {p.returncode}: "
-                     f"{err[-2000:]}")
+        mode_recs = _run_clients(f"shards {mode}", "direct", [
+            [*flags, "--shards", str(N_SHARDS), "--shard-id", str(i),
+             "--spool-dir", spool, *(["-o", out] if i == 0 else []), mpi,
+             faa] for i in range(N_SHARDS)], d)
         with open(out) as f:
             if f.read() != want[mode]:
                 fail(f"shards {mode}: shard 0's output differs from "
                      "map_file's")
         launches: dict = {}
-        for i, fn in enumerate(jsons):
-            with open(fn) as f:
-                rec = json.load(f)
+        for i, rec in enumerate(mode_recs):
             rec.update(mode=mode, shard=i)
             recs.append(rec)
             for k, v in rec["launches"].items():
@@ -1456,17 +1499,7 @@ def phase_shards(mi, mpi, faa, want_paf, d, threads):
                   f"({n_mine / rec['wall_s']:.2f} proteins/s); DP split "
                   f"{rec['n_device']} device / {rec['n_host']} host; peak "
                   f"planes in flight {rec['peak_pending_tb']} bytes; "
-                  f"{rec['first_launch_s']:.2f} s from spawn to the first "
-                  f"launch: interpreter and import torch "
-                  f"{rec['torch_s']:.2f}, the package's imports "
-                  f"{rec['start_s'] - rec['torch_s']:.2f}, "
-                  f"CUDA context {rec['context_s']:.2f}, library load "
-                  f"{rec['library_s']:.3f}, index load "
-                  f"{rec['index_load_s']:.3f} (mapped), engine construction "
-                  f"{rec['engine_s']:.3f}, the rest (the first chunk's "
-                  "pre_align) "
-                  f"{rec['first_launch_s'] - rec['start_s'] - rec['context_s'] - rec['library_s'] - rec['index_load_s'] - rec['engine_s']:.2f}",
-                  flush=True)
+                  + _start_line(rec), flush=True)
         for k in ("track_prep", "ext_dp", "scan_cigar_dp", "run_walk"):
             if launches[k] <= 0:
                 fail(f"shards {mode}: kernel {k} was not launched")
@@ -1476,6 +1509,158 @@ def phase_shards(mi, mpi, faa, want_paf, d, threads):
               f"{ {k: v for k, v in launches.items() if v} }", flush=True)
         runs[f"shards {mode}"] = launches
     return runs, recs
+
+
+N_DAEMON_SHARDS = 4
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def phase_daemon(mpi, faa, want, gpu, d, threads):
+    """The device daemon on the card (python -m miniprot_tpu_torch.daemon
+    --warm on a private socket) and CLI processes attached to it through
+    MINIPROT_TPU_DAEMON_SOCK, against the dumped index ``mpi`` and every
+    protein of ``faa``: one client (PAF, byte-identical to the host
+    engine's ``want``, its proteins/s beside ``gpu``, this run's direct
+    map), then --shards 4 as four concurrent clients (shard 0's merged
+    output equal to ``want``).  No client may initialize CUDA or launch a
+    kernel itself; the daemon's launch counts (read from its ping before
+    and after each run) must show K7, K1, K2 and K3, and its peak planes
+    in flight must stay at or under its cap.  Then one "bench ext"
+    through the daemon, and --stop, after which the daemon exits 0.
+    Returns {"daemon" | "daemon shards": the daemon's launches}."""
+    import shutil
+
+    from miniprot_tpu_torch.daemon import DaemonClient
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_prot = _n_records(faa)
+    # a short directory: a unix socket's path is limited to 107 bytes
+    sdir = tempfile.mkdtemp(prefix="mpd-")
+    sock = os.path.join(sdir, "d.sock")
+    log = os.path.join(d, "daemon.err")
+    env = dict(os.environ, MINIPROT_TPU_DAEMON_SOCK=sock)
+    env.pop("MINIPROT_TPU_DAEMON", None)
+    t0 = time.time()
+    with open(log, "w") as lf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "miniprot_tpu_torch.daemon", "--socket",
+             sock, "--warm"], cwd=here, stdout=subprocess.DEVNULL,
+            stderr=lf)
+    c = None
+    try:
+        while c is None:
+            if proc.poll() is not None:
+                with open(log) as f:
+                    fail(f"[daemon] exited {proc.returncode} before serving: "
+                         f"{f.read()[-2000:]}")
+            if time.time() - t0 > 300:
+                fail("[daemon] no answer 300 s after its start")
+            try:
+                c = DaemonClient.connect(sock, timeout=10)
+            except ConnectionError:
+                time.sleep(0.1)
+        ready = time.time() - t0
+        info = c.info
+        print(f"[daemon] {info['name']} (sm_{info['capability'][0]}"
+              f"{info['capability'][1]}, {info['memory']} bytes): ready "
+              f"{ready:.2f} s after its spawn, of which warm "
+              f"{info['warm']['s']:.2f} s for {len(info['warm']['shapes'])} "
+              f"shapes ({', '.join(info['warm']['shapes'])}); plane cap "
+              f"{info['pending_cap']} bytes in flight, {info['batch_cap']} a "
+              "batch", flush=True)
+        runs = {}
+        before = c.ping()["launches"]
+        out1 = os.path.join(d, "daemon_client.paf")
+        (rec,) = _run_clients("daemon client", "daemon", [
+            [mpi, faa, "-t", str(threads), "-o", out1]], d, env)
+        runs["daemon"] = _launch_delta(before, c.ping()["launches"])
+        with open(out1) as f:
+            if f.read() != want:
+                fail("daemon: the client's output differs from the host "
+                     "engine's")
+        recs = [rec]
+        print(f"[daemon] one client, cli.main over {n_prot} proteins: "
+              f"byte-identical to the host engine ({want.count(chr(10))} "
+              f"lines); {n_prot / rec['wall_s']:.2f} proteins/s "
+              f"({rec['wall_s']:.2f} s of cli.main, the index load "
+              f"included) beside this run's direct GPU map "
+              f"{gpu['n'] / gpu['wall']:.2f} proteins/s ({gpu['wall']:.2f} s "
+              f"of map_file); DP split {rec['n_device']} device / "
+              f"{rec['n_host']} host; {rec['daemon_batches']} batches "
+              f"through the daemon, {rec['launch_s']:.3f} s in their "
+              f"launch RPCs, the daemon's wait on them in collects "
+              f"{rec['daemon_wait_s']:.3f} s; torch.cuda.is_initialized() "
+              f"{rec['cuda_initialized']}; " + _start_line(rec), flush=True)
+        spool = os.path.join(d, "spool_daemon")
+        out4 = os.path.join(d, "daemon_shards.paf")
+        before = c.ping()["launches"]
+        shard_recs = _run_clients("daemon shards", "daemon", [
+            ["--shards", str(N_DAEMON_SHARDS), "--shard-id", str(i),
+             "--spool-dir", spool, *(["-o", out4] if i == 0 else []), mpi,
+             faa] for i in range(N_DAEMON_SHARDS)], d, env)
+        runs["daemon shards"] = _launch_delta(before, c.ping()["launches"])
+        with open(out4) as f:
+            if f.read() != want:
+                fail("daemon shards: shard 0's output differs from "
+                     "map_file's")
+        recs += shard_recs
+        for i, r in enumerate(shard_recs):
+            n_mine = len(range(i, n_prot, N_DAEMON_SHARDS))
+            print(f"[daemon shards] shard {i}: {n_mine} proteins in "
+                  f"{r['wall_s']:.2f} s of cli.main "
+                  f"({n_mine / r['wall_s']:.2f} proteins/s); DP split "
+                  f"{r['n_device']} device / {r['n_host']} host; "
+                  f"torch.cuda.is_initialized() {r['cuda_initialized']}; "
+                  + _start_line(r), flush=True)
+        for r in recs:
+            if r["cuda_initialized"] or any(r["launches"].values()) \
+                    or not r["daemon"]:
+                fail(f"daemon: a client initialized CUDA, launched a "
+                     f"kernel or did not attach: {r}")
+        info = c.ping()
+        total = {k: runs["daemon"][k] + runs["daemon shards"][k]
+                 for k in runs["daemon"]}
+        for k in ("track_prep", "ext_dp", "scan_cigar_dp", "run_walk"):
+            if total[k] <= 0:
+                fail(f"daemon: kernel {k} was not launched by the daemon")
+        if not 0 < info["peak_tb"] <= info["pending_cap"]:
+            fail(f"daemon: peak planes in flight {info['peak_tb']} against "
+                 f"the cap {info['pending_cap']}")
+        print(f"[daemon] {N_DAEMON_SHARDS} --shards clients: shard 0's output "
+              f"byte-identical to map_file's; the daemon launched "
+              f"{ {k: v for k, v in total.items() if v} } for the five "
+              f"clients ({info['launched']} batches, {info['collect_ops']} "
+              f"collects); peak planes in flight {info['peak_tb']} bytes "
+              f"under the cap {info['pending_cap']}; {info['budget_waits']} "
+              "batches waited for room", flush=True)
+        b = c.bench("ext")
+        print(f"[daemon] bench ext through the daemon on {b['device']}: "
+              f"{b['value']:.2f} GCUPS (readings {b['ext_gcups_reps']}, "
+              f"peak share {b['ext_peak_share']:.4f})", flush=True)
+        c.close()
+        c = None
+        r = subprocess.run([sys.executable, "-m", "miniprot_tpu_torch.daemon",
+                            "--socket", sock, "--stop"], cwd=here,
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            fail(f"daemon --stop exited {r.returncode}: {r.stderr[-2000:]}")
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            with open(log) as f:
+                fail(f"the daemon exited {rc} after --stop: "
+                     f"{f.read()[-2000:]}")
+        print(f"[daemon] stopped: --stop exited 0, the daemon {rc}",
+              flush=True)
+    finally:
+        if c is not None:
+            c.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(sdir, ignore_errors=True)
+    return runs
 
 
 MESH_PROTEINS = 500
@@ -1651,6 +1836,7 @@ def phase_e2e(genome_mb, n_prot, threads):
         mi.dump(mpi)
         trace_launches = phase_trace(mpi, *subsets[0], d, threads)
         shard_runs, _ = phase_shards(mi, mpi, faa, host["out"], d, threads)
+        daemon_runs = phase_daemon(mpi, faa, host["out"], gpu, d, threads)
         mesh_launches = phase_mesh(mi, faa, d, threads)
         mi_gpu, sk_wall, sk_stages, sk_launches = index_build(fa)
     if gpu["out"] != host["out"]:
@@ -1683,7 +1869,8 @@ def phase_e2e(genome_mb, n_prot, threads):
     return {"default": gpu["launches"], "PRE_CHUNK 0": whole["launches"],
             "striped route": striped["launches"], "-O 0": gpu0["launches"],
             "route probe": route_launches, "server": srv_launches,
-            **trace_launches, **shard_runs, "mesh": mesh_launches,
+            **trace_launches, **shard_runs, **daemon_runs,
+            "mesh": mesh_launches,
             "index": sk_launches}
 
 

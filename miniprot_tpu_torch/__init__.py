@@ -9,6 +9,8 @@ its native C engine; the device layer is new:
     kernels/nasw_ext.py         extension DP        (CUDA kernel K1)
     kernels/nasw_cigar_scan.py  scan CIGAR DP + walk (K2, K3)
     device.py                   GpuExtEngine: batching + host routing
+    daemon.py                   one process owns the card; engines
+                                elsewhere ship it their batches
     pipeline.py / cli.py        map_file(device="cuda"|"cpu"|None)
     convert.py                  index / options state from miniprot_tpu
 

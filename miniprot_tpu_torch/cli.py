@@ -78,7 +78,11 @@ Options:
     -K NUM       query batch size [2M]
   GPU-build extensions:
     --gpu        alignment DPs on the CUDA card (the default; fails when
-                 no card of compute capability >= 9.0 is present)
+                 no card of compute capability >= 9.0 is present); when
+                 a device daemon (python -m miniprot_tpu_torch.daemon)
+                 answers at its socket, the DPs go to it and this process
+                 never touches the card (MINIPROT_TPU_DAEMON=0: do not
+                 use it; MINIPROT_TPU_DAEMON_SOCK names another socket)
     --no-gpu     host engine only
     --gpu-sketch index-build sketching on the CUDA card (equal to the
                  host sketch; fails when no sm_90 card is present)

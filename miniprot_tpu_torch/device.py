@@ -23,15 +23,23 @@ MIN_DEVICE_NL; CIGAR jobs shorter than CIG_MIN_NL or wider than the
 largest class, --spsc CIGAR jobs whose folded donor goes negative, and
 scan walks that hit the round cap.
 
-There is no hidden fallback: a build failure, a launch error or a
-device fault raises out of the engine.
+Daemon clients: when a device daemon (daemon.py) answers, the engine
+builds its batches as always and ships them there (daemon.attach says
+when): each flush's batches go in one launch_many RPC, each collect wave
+(and each planes-cap drain) is one collect RPC, the daemon decodes, and
+the engine takes the card's identity and plane budget from the daemon's
+ping, so the process never creates a CUDA context.
+
+There is no hidden fallback: a build failure, a launch error, a device
+fault or a daemon error raises out of the engine.
 
 CIGAR memory policy: a batch allocates its traceback planes at launch
 (tb_bytes(): tb + hint for the scan kernel, tb alone for the striped
 one, int16 each); the per-batch cap and the cap on
-launched-but-uncollected planes are fractions of the card's own memory,
-and a batch is launched only after older batches are collected down to
-that cap.
+launched-but-uncollected planes are fractions of the card's own memory
+(on a daemon client, the daemon's figures for the card it owns), and a
+batch is launched only after older batches are collected down to that
+cap.
 """
 
 from __future__ import annotations
@@ -133,13 +141,28 @@ class _CigJob:
     result: tuple | None = None
 
 
+class _Remote:
+    """The handles of a batch launched through the daemon: its id once a
+    launch_many has carried it, its decoded results once collected."""
+
+    __slots__ = ("bid", "results")
+
+    def __init__(self):
+        self.bid = self.results = None
+
+
 class GpuExtEngine:
     """Batches alignment DPs onto the CUDA kernels (or, for
-    device="cpu", onto their plain PyTorch versions)."""
+    device="cpu", onto their plain PyTorch versions), in this process or
+    through the device daemon at ``daemon`` (a socket path; see
+    daemon.attach for when the engine attaches without one)."""
 
-    def __init__(self, opt: MapOpt, device="cuda", cig_impl=None):
+    def __init__(self, opt: MapOpt, device="cuda", cig_impl=None,
+                 daemon: str | None = None):
+        from . import daemon as _daemon
         self.opt = opt
-        self.device = resolve_device(device)
+        self.client = _daemon.attach(device, daemon)
+        self._unsent: list = []      # (batch, _Remote) not yet shipped
         # the CIGAR kernel: "scan" (go >= 1 only) or "striped"; the
         # same output either way, so the switch is for coverage and
         # parity, not tuning (the JAX engine reads the same variable)
@@ -154,9 +177,17 @@ class GpuExtEngine:
                         opt.end_bonus, opt.ie_coef)
         self.mat = opt.mat
         self.mat_max = int(np.max(opt.mat))
-        mem = _memory_bytes(self.device)
-        self.cig_tb_cap = int(mem * CIG_TB_FRACTION)
-        self.pending_tb_cap = int(mem * PENDING_TB_FRACTION)
+        if self.client is not None:
+            info = self.client.info
+            self.device = torch.device(info["device_type"])
+            self.cig_tb_cap = info["batch_cap"]
+            self.pending_tb_cap = info["pending_cap"]
+            self._daemon_start = info
+        else:
+            self.device = resolve_device(device)
+            mem = _memory_bytes(self.device)
+            self.cig_tb_cap = int(mem * CIG_TB_FRACTION)
+            self.pending_tb_cap = int(mem * PENDING_TB_FRACTION)
         self.peak_pending_tb = 0     # most tb+hint bytes ever in flight
         self.ext_jobs: list[_ExtJob] = []
         self.cig_jobs: list[_CigJob] = []
@@ -178,6 +209,10 @@ class GpuExtEngine:
         # decoding collected results (the CIGARs' run expansion)
         self.launch_s = 0.0
         self.decode_s = 0.0
+        # on a daemon client: the seconds the daemon waited on this
+        # engine's batches inside its collects (the rest of a collect
+        # RPC's wall is decode and transfer)
+        self.daemon_wait_s = 0.0
 
     # ---- request intake ----
 
@@ -206,12 +241,75 @@ class GpuExtEngine:
         tot[1] = max(tot[1], n)
 
     def _launch(self, batch):
-        """batch.launch(), its host seconds added to launch_s."""
+        """batch.launch(), its host seconds added to launch_s; on a
+        daemon client the batch waits for the next _send and a _Remote
+        stands for its handles."""
+        if self.client is not None:
+            r = _Remote()
+            self._unsent.append((batch, r))
+            return r
         t0 = time.monotonic()
         try:
             return batch.launch()
         finally:
             self.launch_s += time.monotonic() - t0
+
+    def _send(self) -> None:
+        """One launch_many RPC for the batches _launch queued since the
+        last; its seconds are added to launch_s."""
+        unsent, self._unsent = self._unsent, []
+        if not unsent:
+            return
+        t0 = time.monotonic()
+        try:
+            bids = self.client.launch_many([b for b, _ in unsent])
+        finally:
+            self.launch_s += time.monotonic() - t0
+        for (_, r), bid in zip(unsent, bids):
+            r.bid = bid
+
+    def _fetch(self, remotes: list) -> float:
+        """One collect RPC for launched batches' _Remotes (sending any
+        still queued first): their results, decoded by the daemon, land
+        in each; returns the wave's card seconds."""
+        self._send()
+        results, card_s, wait_s = self.client.collect(
+            [r.bid for r in remotes])
+        self.daemon_wait_s += wait_s
+        for r, res in zip(remotes, results):
+            r.results = res
+        return card_s
+
+    def _wait_one(self, handles):
+        """A blocking collect of one launched batch outside the wave:
+        what _collect decodes."""
+        if isinstance(handles, _Remote):
+            self._fetch([handles])
+            return handles
+        host = to_host(handles)
+        host.wait()
+        return host
+
+    def daemon_stats(self) -> dict:
+        """The daemon's side of this engine's work, from a ping: batches
+        it launched and kernel launches since the engine attached, the
+        seconds it waited on them in collects, its peak planes in flight
+        (over its life) and its cap; {} for an engine that launches its
+        own batches."""
+        if self.client is None:
+            return {}
+        now, then = self.client.ping(), self._daemon_start
+        return {"daemon_batches": now["launched"] - then["launched"],
+                "daemon_launches": {k: v - then["launches"].get(k, 0)
+                                    for k, v in now["launches"].items()},
+                "daemon_wait_s": self.daemon_wait_s,
+                "daemon_peak_pending_tb": now["peak_tb"],
+                "daemon_pending_cap": now["pending_cap"]}
+
+    def close(self) -> None:
+        """Close the daemon connection (nothing to do without one)."""
+        if self.client is not None:
+            self.client.close()
 
     def _prep(self, job, ext_left, io):
         return nk.prep_problem(job.nsq, job.asq, sp=self.sp,
@@ -297,7 +395,10 @@ class GpuExtEngine:
         self.n_host += 1
 
     def _collect(self, batch, host):
-        """batch.collect of a prefetched copy, its seconds in decode_s."""
+        """batch.collect of a prefetched copy, its seconds in decode_s
+        (a daemon's results come decoded)."""
+        if isinstance(host, _Remote):
+            return host.results
         t0 = time.monotonic()
         try:
             return batch.collect(host)
@@ -382,8 +483,7 @@ class GpuExtEngine:
                 # a blocking collect outside the wave
                 o_idxs, o_batch, o_handles = pending.pop(0)
                 t0 = time.monotonic()
-                host = to_host(o_handles)
-                host.wait()
+                host = self._wait_one(o_handles)
                 profiler.add_device_block(time.monotonic() - t0)
                 self._decode_cig_one(cig_jobs, o_idxs, o_batch, host)
                 outstanding[0] -= o_batch.tb_bytes()
@@ -448,13 +548,16 @@ class GpuExtEngine:
         in-flight state; call flush_end(flight) exactly once for the
         results."""
         from .sysutil import profiler
-        fl = _Flight(self.device)
+        fl = _Flight(self.device,
+                     self._fetch if self.client is not None else None)
         profiler.flush_rounds += 1
         fl.requests, self.requests = self.requests, []
         fl.ext_jobs, self.ext_jobs = self.ext_jobs, []
         fl.cig_jobs, self.cig_jobs = self.cig_jobs, []
         ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
         cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        if self.client is not None:
+            self._send()
         fl.begin_wave(ext_pending, cig_pending)
         t0 = time.monotonic()
         for i in ext_host:
@@ -504,24 +607,30 @@ def _cig_kind(batch) -> str:
 class _Flight:
     """One in-flight flush: its requests/jobs snapshot and its collect
     wave, the launched batches with their results on the way to host
-    memory."""
+    memory (or, through a daemon, the batches it launched: ``fetch`` is
+    the engine's _fetch, and the wave's join is one collect RPC)."""
 
     __slots__ = ("requests", "ext_jobs", "cig_jobs", "ext_wave",
-                 "cig_wave", "_span", "_joined")
+                 "cig_wave", "_span", "_joined", "_fetch")
 
-    def __init__(self, device):
+    def __init__(self, device, fetch=None):
         self._joined = False
+        self._fetch = fetch
         # timing events around the round's work on the card: from before
         # its first launch to after its last result copy
         self._span = None
-        if device.type == "cuda":
+        if device.type == "cuda" and fetch is None:
             self._span = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             self._span[0].record()
 
     def begin_wave(self, ext_pending, cig_pending) -> None:
         """Queue the copies of every launched batch's results to host
-        memory (kernels.to_host), then the wave's closing event."""
+        memory (kernels.to_host), then the wave's closing event; a
+        daemon's batches keep their _Remotes (it copies them itself)."""
+        if self._fetch is not None:
+            self.ext_wave, self.cig_wave = ext_pending, cig_pending
+            return
         self.ext_wave = [(i, b, to_host(h)) for i, b, h in ext_pending]
         self.cig_wave = [(i, b, to_host(h)) for i, b, h in cig_pending]
         if self._span is not None:
@@ -529,14 +638,21 @@ class _Flight:
 
     def join(self) -> None:
         """Wait once for the wave's last event (stream order: every copy
-        of the round has then landed); adds the wave's card seconds and
-        the driving thread's wait to the profiler."""
+        of the round has then landed), or make the daemon's one collect
+        RPC; adds the wave's card seconds and the driving thread's wait
+        to the profiler."""
         from .sysutil import profiler
         if self._joined:
             raise RuntimeError("flight joined twice")
         self._joined = True
         wave = 0.0
         t0 = time.monotonic()
+        if self._fetch is not None:
+            remotes = [h for _, _, h in self.ext_wave + self.cig_wave]
+            if remotes:
+                wave = self._fetch(remotes)
+            profiler.add_device_block(wave, exposed=time.monotonic() - t0)
+            return
         if self._span is not None:
             self._span[1].synchronize()
         exposed = time.monotonic() - t0

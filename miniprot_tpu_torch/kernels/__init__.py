@@ -129,6 +129,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def as_device(device) -> torch.device:
+    """A batch's device: a torch.device as its caller resolved it (an
+    engine; a daemon client's engine names the card without probing it,
+    which would create a CUDA context), anything else through
+    resolve_device."""
+    if isinstance(device, torch.device):
+        return device
+    return resolve_device(device)
+
+
 def _sources() -> list[str]:
     return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
                   if f.endswith((".cu", ".cuh")))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import tables as _tables
-from . import (LAUNCHES, call, require, resolve_device, stream_ptr, to_host,
+from . import (LAUNCHES, as_device, call, require, stream_ptr, to_host,
                warps_for)
 from .nasw_ext import _upload, prep_tracks
 
@@ -393,7 +393,7 @@ class TrackBatch:
         (self.go, self.ge, self.fs, self.default_io, self.xdrop,
          self.end_bonus, self.ie_coef) = opt_scalars
         self.mat = np.asarray(mat).reshape(22, 22).astype(np.int8)
-        self.device = resolve_device(device)
+        self.device = as_device(device)
         self.capacity = capacity or self.CAPACITY
         self.alv = np.ones(self.capacity, np.int32)
         self.nlv = np.zeros(self.capacity, np.int32)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from . import (LAUNCHES, call, require, resolve_device, stream_ptr,
+from . import (LAUNCHES, as_device, call, require, stream_ptr,
                to_host)
 
 NEG = -(1 << 29)
@@ -643,7 +643,7 @@ class ExtBatch:
         (self.go, self.ge, self.fs, self.default_io, self.xdrop,
          self.end_bonus, self.ie_coef) = opt_scalars
         self.mat = np.asarray(mat).reshape(22, 22)
-        self.device = resolve_device(device)
+        self.device = as_device(device)
         self.capacity = capacity
         self.nas = np.zeros((capacity, self.nl), np.int8)
         self.D = np.zeros((capacity, self.nl + 8), np.int16)
@@ -708,7 +708,7 @@ class RawExtBatch:
         self.mat = np.asarray(mat).reshape(22, 22)
         self.sp = np.asarray(sp, np.int32).reshape(-1)
         self.trans_code = trans_code
-        self.device = resolve_device(device)
+        self.device = as_device(device)
         self.capacity = capacity
         self.nt = np.zeros((capacity, self.nl + 8), np.int8)
         self.leftb = np.zeros(capacity, np.int8)

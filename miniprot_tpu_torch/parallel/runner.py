@@ -136,8 +136,9 @@ def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
     trustworthy checkpoint; docstring at module top).
 
     device: "cuda" (the default) batches this shard's alignment-round
-    DPs onto the card through a GpuExtEngine (pipeline.map_batch_gpu)
-    and raises without one, "cpu" runs the same engine on the kernels'
+    DPs onto the card through a GpuExtEngine (pipeline.map_batch_gpu;
+    through the device daemon when one answers, daemon.attach) and
+    raises without a card, "cpu" runs the same engine on the kernels'
     plain versions, None maps on the host C engine; the spooled records
     are identical either way.  An engine error raises (no host
     fallback)."""
@@ -199,7 +200,10 @@ def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
     os.replace(tmp, spool_path(spool_dir, process_id))  # atomic: resumable
     if engine is not None:
         from ..pipeline import _engine_stats
-        _engine_stats(engine, None)
+        try:
+            _engine_stats(engine, None)
+        finally:
+            engine.close()
     return n
 
 

@@ -317,6 +317,7 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
                     n_mapped += len(part)
                 if choice == "host":
                     _engine_stats(engine, stats)
+                    engine.close()
                     engine = None
             if engine is not None:
                 _map_batch_gpu(mi, opt, env, engine, batch, id_counter, out, pool)
@@ -345,7 +346,10 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
         pre.close()
         profiler.stop("map")
         if engine is not None:
-            _engine_stats(engine, stats)
+            try:
+                _engine_stats(engine, stats)
+            finally:
+                engine.close()
         if ckpt_f is not None:
             ckpt_f.close()
         if pool is not None:
@@ -356,7 +360,9 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
 
 def _engine_stats(engine, stats) -> None:
     """Log the device engine's DP split and put its counters in
-    ``stats``."""
+    ``stats``: ``daemon`` says whether the engine shipped its batches to
+    a device daemon, and then the daemon's side (engine.daemon_stats:
+    batches and kernel launches for this engine, peak planes and cap)."""
     from . import sysutil
     from .sysutil import profiler
     sysutil.log(
@@ -376,7 +382,9 @@ def _engine_stats(engine, stats) -> None:
                      host_dp_s=engine.host_dp_s,
                      launch_s=engine.launch_s,
                      decode_s=engine.decode_s,
-                     peak_pending_tb=engine.peak_pending_tb)
+                     peak_pending_tb=engine.peak_pending_tb,
+                     daemon=engine.client is not None,
+                     **engine.daemon_stats())
 
 
 # pre_align streaming (port of miniprot_tpu.pipeline's constants of the

@@ -29,6 +29,7 @@ import socketserver
 import sys
 import tempfile
 
+from .daemon import attach
 from .index import Index
 from .kernels import lib, resolve_device
 from .options import MapOpt
@@ -86,7 +87,9 @@ class _Handler(socketserver.StreamRequestHandler):
 class MapServer(socketserver.TCPServer):
     """One request at a time, each mapped by map_file on ``device``
     ("cuda" by default, "cpu" for the kernels' plain versions, None for
-    the host engine)."""
+    the host engine).  When a device daemon answers (daemon.attach),
+    the requests' batches go to it and this process never touches the
+    card."""
 
     allow_reuse_address = True
 
@@ -97,8 +100,12 @@ class MapServer(socketserver.TCPServer):
         self.n_threads = n_threads
         self.device = device
         self.max_request = max_request
-        if device is not None and resolve_device(device).type == "cuda":
-            lib()   # build and load the kernels before the first request
+        if device is not None:
+            client = attach(device)
+            if client is not None:
+                client.close()   # each request's engine attaches itself
+            elif resolve_device(device).type == "cuda":
+                lib()   # build and load the kernels before the first request
         super().__init__(addr, _Handler)
 
 

@@ -14,7 +14,7 @@ _PROBE = """
 import sys
 import miniprot_tpu_torch
 from miniprot_tpu_torch import benchmarks, cli, convert, device  # noqa
-from miniprot_tpu_torch import pipeline, server  # noqa
+from miniprot_tpu_torch import daemon, pipeline, server  # noqa
 from miniprot_tpu_torch.kernels import nasw_cigar_scan, nasw_ext  # noqa
 from miniprot_tpu_torch.kernels import nasw_cigar_striped, sketch_gpu  # noqa
 bad = sorted(m for m in sys.modules
@@ -102,10 +102,12 @@ print(",".join(sorted(m for m in sys.modules
 
 @pytest.mark.parametrize("mod", ["miniprot_tpu_torch.parallel.runner",
                                  "miniprot_tpu_torch.parallel.dist",
-                                 "miniprot_tpu_torch.entry"])
+                                 "miniprot_tpu_torch.entry",
+                                 "miniprot_tpu_torch.daemon"])
 def test_parallel_and_entry_modules_leave_jax_out(mod):
-    """The shard runner, the mesh layer and the entry points, each
-    imported alone, bring in neither jax nor miniprot_tpu."""
+    """The shard runner, the mesh layer, the entry points and the device
+    daemon, each imported alone, bring in neither jax nor
+    miniprot_tpu."""
     r = subprocess.run([sys.executable, "-c", _MODULE_PROBE, mod], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
