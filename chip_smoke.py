@@ -11,8 +11,8 @@ the card and on the host engine and requires byte-identical output.
 
 The second form runs only the e2e workload's three GPU maps (at each
 --pre-chunk), each with its stage split (pre_align, pre_align_wait,
-align_rounds, launch(), decode), collect waves against the wait they
-cost, flush rounds and launches; the third only its
+align_rounds, launch(), decode), the wait on the card, flush rounds
+and launches; the third only its
 --gpu-sketch index build, twice, with the build's stage split (fetch,
 sketch, bb_add, bb_finish) and K6's time on the first strand.
 --package DIR runs the miniprot_tpu_torch of another checkout (a parent
@@ -94,7 +94,7 @@ Phases (any failure exits non-zero and prints no result):
      the kernels' device time per run (CUDA events around each launch),
      launches and problems per launch per (kind, width, nl bucket),
      the DPs the engine ran on the host, by reason, with their host
-     seconds, and the map's stages, collect waves and flush rounds
+     seconds, and the map's stages, wait on the card and flush rounds
   5. entry points: entry() (K7 + K1 at the JAX entry's shape) equal to
      its plain version and the host engine, timed; dryrun_multichip(1)
      (one NCCL rank, output equal to map_query's)
@@ -1021,7 +1021,7 @@ def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None,
     run = dict(out=buf.getvalue(), wall=wall, n=n, stats=stats,
                launches=launches, kernel_ms=kernel_ms,
                stages=dict(profiler.stages), pre_chunk=chunk,
-               wave=profiler.wave_span_s, exposed=profiler.device_exposed_s,
+               exposed=profiler.device_exposed_s,
                rounds=profiler.flush_rounds)
     if device is None and any(launches.values()):
         fail(f"the host engine run launched kernels: {launches}")
@@ -1035,8 +1035,8 @@ def _map(mi, faa, opt, device, threads, need=(), pre_chunk=None,
 
 
 def _stage_line(run) -> str:
-    """The GPU map's host stages, its collect waves against the wait they
-    cost the driving thread, its flush rounds and launches per kind."""
+    """The GPU map's host stages, the driving thread's wait on the card,
+    its flush rounds and launches per kind."""
     st, stats = run["stages"], run["stats"]
     per_kind: dict = {}
     for key, (t, _) in stats["bucket_problems"].items():
@@ -1050,8 +1050,8 @@ def _stage_line(run) -> str:
             f"{st.get('finish_align', 0):.3f}, emit {st.get('emit', 0):.3f}, "
             f"pool start {st.get('pool_start', 0):.3f} s; inside the "
             f"batches' launch() {stats['launch_s']:.3f} s, decode "
-            f"{stats['decode_s']:.3f} s; collect waves span "
-            f"{run['wave']:.3f} s, exposed wait {run['exposed']:.3f} s; "
+            f"{stats['decode_s']:.3f} s; exposed wait "
+            f"{run['exposed']:.3f} s; "
             f"{run['rounds']} flush rounds; launches / mean "
             "problems per launch: " + ", ".join(
                 f"{k} {n} / {t / n:.1f}"
@@ -1877,8 +1877,8 @@ def phase_e2e(genome_mb, n_prot, threads):
 def phase_maps(genome_mb, n_prot, threads, pre_chunks):
     """The e2e workload's three GPU maps alone (no host maps, no kernel
     phases), at each PRE_CHUNK of ``pre_chunks``, each with its
-    proteins/s, stage split, collect waves against exposed wait, flush
-    rounds and the kernels' device time: the comparison of two trees
+    proteins/s, stage split, exposed wait, flush rounds and the
+    kernels' device time: the comparison of two trees
     (--package) in one call."""
     from miniprot_tpu_torch.index import Index
     from miniprot_tpu_torch.options import IdxOpt, MapOpt

@@ -86,11 +86,13 @@ Options:
     --no-gpu     host engine only
     --gpu-sketch index-build sketching on the CUDA card (equal to the
                  host sketch; fails when no sm_90 card is present)
-    --profile    per-stage timers + DP cell counters and kernel launch
-                 counts to stderr
+    --profile    to stderr: each stage's and span's host seconds
+                 ([P::name]), the DP cells on the host and the card, the
+                 launched problems per DP recurrence, kernel launch counts
     --profile-trace=DIR  write a torch.profiler Chrome trace of the map
-                 to DIR/trace.json: host operations and, on the card,
-                 every kernel launch with its device time
+                 to DIR/trace.json: host operations, the profiler's
+                 spans (map, pump.*, engine.*, ...) as ranges and, on
+                 the card, every kernel launch with its device time
     --route-probe  measure the GPU engine against the host engine on the
                  first mini-batch (split A/B, each query mapped once)
                  and keep the faster; a decisive outcome is cached for
@@ -122,7 +124,8 @@ _SHORT_ARG = "kMLslbTtdcnmKpNOEJCFGegBPwjo"
 
 class _Trace:
     """--profile-trace: a torch.profiler session around the map, written
-    as a Chrome trace.  With a device engine it traces the card too
+    as a Chrome trace, with the port's profiler spans turned on so the
+    trace holds them.  With a device engine it traces the card too
     (CUDA activity, CUPTI) and write() requires a device event for every
     kernel the map launched; a trace that cannot be started, written
     or that lacks a launched kernel raises with the reason."""
@@ -131,7 +134,7 @@ class _Trace:
         from torch.profiler import (ProfilerActivity, profile,
                                     supported_activities)
 
-        from . import kernels
+        from . import kernels, sysutil
         acts = [ProfilerActivity.CPU]
         if device is not None:
             if ProfilerActivity.CUDA not in supported_activities():
@@ -145,8 +148,12 @@ class _Trace:
         self.before = kernels.launch_counts()
         self.prof = profile(activities=acts)
         self.prof.start()
+        self.spans_were = sysutil.profiler.enabled
+        sysutil.profiler.enabled = True
 
     def stop(self) -> None:
+        from . import sysutil
+        sysutil.profiler.enabled = self.spans_were
         self.prof.stop()
 
     def write(self) -> None:

@@ -58,6 +58,7 @@ from .kernels import nasw_cigar_striped as cst
 from .kernels import nasw_ext as nk
 from .native import DPF_CIGAR, DPF_EXT_LEFT, DPF_EXT_RIGHT
 from .options import MapOpt
+from .sysutil import profiler
 
 AL_BUCKETS = (128, 512, 1024)
 # the top bucket covers the default max_intron/2 = 100kb extension
@@ -200,10 +201,16 @@ class GpuExtEngine:
         # launches held: [sum, max]
         self.bucket_batches: dict[tuple, int] = {}
         self.bucket_problems: dict[tuple, list] = {}
-        # host-routed DPs per reason, and the host seconds flush_begin
-        # spends running them (the round-cap redos run in collects)
+        # host-routed DPs per reason; the host seconds of each reason's
+        # DPs, and those of flush_begin's share (every reason but the
+        # round-cap redos, which run in collects)
         self.host_reasons: dict[str, int] = {}
+        self.host_dp_s_by_reason: dict[str, float] = {}
         self.host_dp_s = 0.0
+        # the launched problems per DP recurrence, as
+        # profiler.launched counts them: [problems, sum(nl * al),
+        # sum(nl + al), padded cells]
+        self.launched: dict[str, list] = {}
         # host seconds spent inside the batches' launch() calls (upload,
         # prep and kernel launches, and any wait for the card there), and
         # decoding collected results (the CIGARs' run expansion)
@@ -234,6 +241,17 @@ class GpuExtEngine:
     def _route_host(self, reason: str) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + 1
 
+    def _run_host(self, reason: str, fn, *args) -> float:
+        """fn(*args), host DPs routed for ``reason``: its seconds go to
+        host_dp_s_by_reason and are returned."""
+        t0 = time.monotonic()
+        with profiler.span("engine.host_dp." + reason):
+            fn(*args)
+        dt = time.monotonic() - t0
+        self.host_dp_s_by_reason[reason] = (
+            self.host_dp_s_by_reason.get(reason, 0.0) + dt)
+        return dt
+
     def _count_launch(self, key: tuple, n: int) -> None:
         self.bucket_batches[key] = self.bucket_batches.get(key, 0) + 1
         tot = self.bucket_problems.setdefault(key, [0, 0])
@@ -250,7 +268,8 @@ class GpuExtEngine:
             return r
         t0 = time.monotonic()
         try:
-            return batch.launch()
+            with profiler.span("engine.launch"):
+                return batch.launch()
         finally:
             self.launch_s += time.monotonic() - t0
 
@@ -262,23 +281,22 @@ class GpuExtEngine:
             return
         t0 = time.monotonic()
         try:
-            bids = self.client.launch_many([b for b, _ in unsent])
+            with profiler.span("engine.launch"):
+                bids = self.client.launch_many([b for b, _ in unsent])
         finally:
             self.launch_s += time.monotonic() - t0
         for (_, r), bid in zip(unsent, bids):
             r.bid = bid
 
-    def _fetch(self, remotes: list) -> float:
+    def _fetch(self, remotes: list) -> None:
         """One collect RPC for launched batches' _Remotes (sending any
         still queued first): their results, decoded by the daemon, land
-        in each; returns the wave's card seconds."""
+        in each."""
         self._send()
-        results, card_s, wait_s = self.client.collect(
-            [r.bid for r in remotes])
+        results, _, wait_s = self.client.collect([r.bid for r in remotes])
         self.daemon_wait_s += wait_s
         for r, res in zip(remotes, results):
             r.results = res
-        return card_s
 
     def _wait_one(self, handles):
         """A blocking collect of one launched batch outside the wave:
@@ -317,11 +335,12 @@ class GpuExtEngine:
                                ext_left=ext_left, ss=job.ss)
 
     def _launch_ext(self, ext_jobs) -> tuple:
-        """Bucket + launch the ext batches; returns (pending, host_jobs).
-        Jobs without an external splice track ship raw nt4 windows
-        (device prep); --spsc jobs keep host prep."""
+        """Bucket + launch the ext batches; returns (pending, host_jobs),
+        host_jobs {reason: [job index, ...]}.  Jobs without an external
+        splice track ship raw nt4 windows (device prep); --spsc jobs
+        keep host prep."""
         buckets: dict[tuple, list[int]] = {}
-        host_jobs: list[int] = []
+        host_jobs: dict[str, list[int]] = {}
         for i, job in enumerate(ext_jobs):
             nl, al = len(job.nsq), len(job.asq)
             reason = ("ext_short" if nl < MIN_DEVICE_NL
@@ -331,23 +350,21 @@ class GpuExtEngine:
                           al, self.mat_max, self.opt.end_bonus)
                       # threshold-table growth
                       else "ext_logpen" if self.opt.ie_coef > 8.0 else None)
+            if reason is None:
+                al_b = next(b for b in AL_BUCKETS if al <= b)
+                nl_b = next(b for b in NL_BUCKETS if nl <= b)
+                if job.ss is not None and int(
+                        self.opt.ie_coef * np.log2(nl_b) + 0.5) > 126:
+                    # host-prepped (--spsc) batches stream the log-length
+                    # penalty as int8 (126: one count of margin for
+                    # mp_log2_f32-vs-log2 drift)
+                    reason = "ext_logpen"
             if reason is not None:
                 self._route_host(reason)
-                host_jobs.append(i)
-                continue
-            al_b = next(b for b in AL_BUCKETS if al <= b)
-            nl_b = next(b for b in NL_BUCKETS if nl <= b)
-            if job.ss is not None and int(
-                    self.opt.ie_coef * np.log2(nl_b) + 0.5) > 126:
-                # host-prepped (--spsc) batches stream the log-length
-                # penalty as int8 (126: one count of margin for
-                # mp_log2_f32-vs-log2 drift)
-                self._route_host("ext_logpen")
-                host_jobs.append(i)
+                host_jobs.setdefault(reason, []).append(i)
                 continue
             buckets.setdefault((al_b, nl_b), []).append(i)
         from . import tables
-        from .sysutil import profiler
         T = tables.get_tables()
         pending: list = []
         for (al_b, nl_b), idxs in buckets.items():
@@ -382,7 +399,10 @@ class GpuExtEngine:
             self.n_device += len(chunk)
             self.batches["ext"] += 1
             self._count_launch(("ext", batch.al, batch.nl), batch.n)
-            profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n)
+            profiler.add_device_dp("ext", batch.nlv[:batch.n],
+                                   batch.als[:batch.n],
+                                   batch.nl * batch.al * batch.n,
+                                   into=self.launched)
         return pending, host_jobs
 
     def _ext_host(self, ext_jobs, i) -> None:
@@ -394,14 +414,16 @@ class GpuExtEngine:
         job.result = (sc, ntl, aal)
         self.n_host += 1
 
-    def _collect(self, batch, host):
+    def _collect(self, batch, host, span="engine.decode"):
         """batch.collect of a prefetched copy, its seconds in decode_s
-        (a daemon's results come decoded)."""
+        (a daemon's results come decoded) and in the profiler's ``span``
+        (a drain's decodes have one of their own, inside the drain)."""
         if isinstance(host, _Remote):
             return host.results
         t0 = time.monotonic()
         try:
-            return batch.collect(host)
+            with profiler.span(span):
+                return batch.collect(host)
         finally:
             self.decode_s += time.monotonic() - t0
 
@@ -441,38 +463,53 @@ class GpuExtEngine:
         job.result = (sc, c)
         self.n_host += 1
 
-    def _decode_cig_one(self, cig_jobs, idxs, batch, host) -> None:
-        from .sysutil import profiler
-        results = self._collect(batch, host)
-        for k, r in zip(idxs, results):
+    def _cig_hosts(self, cig_jobs, idxs) -> None:
+        """The CIGAR jobs ``idxs`` on the host engine: one batched native
+        call instead of one per tiny rectangle."""
+        res = self.env.dp_cigars([(cig_jobs[i].nsq, cig_jobs[i].asq,
+                                   cig_jobs[i].ss) for i in idxs])
+        for i, r in zip(idxs, res):
+            cig_jobs[i].result = r
+            self.n_host += 1
+
+    def _ext_hosts(self, ext_jobs, idxs) -> None:
+        for i in idxs:
+            self._ext_host(ext_jobs, i)
+
+    def _decode_cig_one(self, cig_jobs, idxs, batch, host,
+                        span="engine.decode") -> None:
+        results = self._collect(batch, host, span)
+        for j, (k, r) in enumerate(zip(idxs, results)):
             if r is None:
                 # the run-walk hit its round cap for this problem (an
                 # adversarially fragmented path): redo it on the host
-                profiler.add_device_dp(-batch.nl * batch.al, -1,
-                                       kind=_cig_kind(batch))
+                profiler.add_device_dp("cigar", batch.nlv[j:j + 1],
+                                       batch.alv[j:j + 1],
+                                       batch.nl * batch.al,
+                                       into=self.launched, sign=-1)
                 self.n_device -= 1
                 self._route_host("walk_round_cap")
-                self._cig_host(cig_jobs, k)
+                self._run_host("walk_round_cap", self._cig_host, cig_jobs, k)
             else:
                 cig_jobs[k].result = r
 
     def _launch_cig(self, cig_jobs) -> tuple:
         """Bucket + launch the CIGAR batches; returns (pending,
-        host_jobs).  Before each launch, the oldest launched batches are
-        collected until the new batch's planes fit under
-        pending_tb_cap."""
-        host_jobs: list[int] = []
+        host_jobs), host_jobs {reason: [job index, ...]}.  Before each
+        launch, the oldest launched batches are collected until the new
+        batch's planes fit under pending_tb_cap."""
+        host_jobs: dict[str, list[int]] = {}
         buckets: dict[tuple, list[int]] = {}
         for i, job in enumerate(cig_jobs):
             shape = self.cig_shape(len(job.nsq), len(job.asq))
             if shape is None:
-                self._route_host("cig_short" if len(job.nsq) < CIG_MIN_NL
-                                 else "cig_outside_classes")
-                host_jobs.append(i)
+                reason = ("cig_short" if len(job.nsq) < CIG_MIN_NL
+                          else "cig_outside_classes")
+                self._route_host(reason)
+                host_jobs.setdefault(reason, []).append(i)
                 continue
             buckets.setdefault(shape, []).append(i)
         from . import tables
-        from .sysutil import profiler
         T = tables.get_tables()
         pending: list = []
         outstanding = [0]
@@ -481,11 +518,13 @@ class GpuExtEngine:
             need = batch.tb_bytes()
             while pending and outstanding[0] + need > self.pending_tb_cap:
                 # a blocking collect outside the wave
-                o_idxs, o_batch, o_handles = pending.pop(0)
-                t0 = time.monotonic()
-                host = self._wait_one(o_handles)
-                profiler.add_device_block(time.monotonic() - t0)
-                self._decode_cig_one(cig_jobs, o_idxs, o_batch, host)
+                with profiler.span("engine.drain"):
+                    o_idxs, o_batch, o_handles = pending.pop(0)
+                    t0 = time.monotonic()
+                    host = self._wait_one(o_handles)
+                    profiler.add_device_block(time.monotonic() - t0)
+                    self._decode_cig_one(cig_jobs, o_idxs, o_batch, host,
+                                         "engine.drain.decode")
                 outstanding[0] -= o_batch.tb_bytes()
             pending.append((idxs, batch, self._launch(batch)))
             outstanding[0] += need
@@ -494,8 +533,10 @@ class GpuExtEngine:
             self.batches[kind] += 1
             self._count_launch((kind, batch.al, batch.nl), batch.n)
             self.n_device += len(idxs)
-            profiler.add_device_dp(batch.nl * batch.al * batch.n, batch.n,
-                                   kind=kind)
+            profiler.add_device_dp("cigar", batch.nlv[:batch.n],
+                                   batch.alv[:batch.n],
+                                   batch.nl * batch.al * batch.n,
+                                   into=self.launched)
 
         for (slen, nl_b), idxs in buckets.items():
             W = slen * 8
@@ -531,9 +572,8 @@ class GpuExtEngine:
                         # single-saturation fold no longer matches the
                         # reference's double-saturating subs; host it
                         self._route_host("cig_spsc_donor")
-                        t0 = time.monotonic()
-                        self._cig_host(cig_jobs, i)
-                        self.host_dp_s += time.monotonic() - t0
+                        self.host_dp_s += self._run_host(
+                            "cig_spsc_donor", self._cig_host, cig_jobs, i)
                         continue
                     batch.add(nas, aas, d, a, io=self.opt.io)
                     usable.append(i)
@@ -544,33 +584,27 @@ class GpuExtEngine:
     def flush_begin(self) -> "_Flight":
         """Launch every batch of the current request set, start the
         collect wave (every batch's results queued for host memory), then
-        run the host engine's share while the card works.  Returns the
-        in-flight state; call flush_end(flight) exactly once for the
-        results."""
-        from .sysutil import profiler
+        run the host engine's share while the card works, one reason at
+        a time.  Returns the in-flight state; call flush_end(flight)
+        exactly once for the results."""
         fl = _Flight(self.device,
                      self._fetch if self.client is not None else None)
         profiler.flush_rounds += 1
         fl.requests, self.requests = self.requests, []
         fl.ext_jobs, self.ext_jobs = self.ext_jobs, []
         fl.cig_jobs, self.cig_jobs = self.cig_jobs, []
-        ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
-        cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
+        with profiler.span("engine.pack"):
+            ext_pending, ext_host = self._launch_ext(fl.ext_jobs)
+            cig_pending, cig_host = self._launch_cig(fl.cig_jobs)
         if self.client is not None:
             self._send()
         fl.begin_wave(ext_pending, cig_pending)
-        t0 = time.monotonic()
-        for i in ext_host:
-            self._ext_host(fl.ext_jobs, i)
-        if cig_host:
-            # one batched native call instead of one per tiny rectangle
-            res = self.env.dp_cigars(
-                [(fl.cig_jobs[i].nsq, fl.cig_jobs[i].asq,
-                  fl.cig_jobs[i].ss) for i in cig_host])
-            for i, r in zip(cig_host, res):
-                fl.cig_jobs[i].result = r
-                self.n_host += 1
-        self.host_dp_s += time.monotonic() - t0
+        for reason, idxs in ext_host.items():
+            self.host_dp_s += self._run_host(reason, self._ext_hosts,
+                                             fl.ext_jobs, idxs)
+        for reason, idxs in cig_host.items():
+            self.host_dp_s += self._run_host(reason, self._cig_hosts,
+                                             fl.cig_jobs, idxs)
         return fl
 
     def flush_end(self, fl: "_Flight") -> list:
@@ -583,12 +617,13 @@ class GpuExtEngine:
         for idxs, batch, host in fl.cig_wave:
             self._decode_cig_one(fl.cig_jobs, idxs, batch, host)
         fl.ext_wave = fl.cig_wave = None
-        out = []
-        for kind, ref in fl.requests:
-            if kind == "ext":
-                out.append(fl.ext_jobs[ref].result)
-            else:
-                out.append([fl.cig_jobs[i].result for i in ref])
+        with profiler.span("engine.scatter"):
+            out = []
+            for kind, ref in fl.requests:
+                if kind == "ext":
+                    out.append(fl.ext_jobs[ref].result)
+                else:
+                    out.append([fl.cig_jobs[i].result for i in ref])
         return out
 
     def flush(self) -> list:
@@ -611,54 +646,44 @@ class _Flight:
     the engine's _fetch, and the wave's join is one collect RPC)."""
 
     __slots__ = ("requests", "ext_jobs", "cig_jobs", "ext_wave",
-                 "cig_wave", "_span", "_joined", "_fetch")
+                 "cig_wave", "_device", "_done", "_joined", "_fetch")
 
     def __init__(self, device, fetch=None):
+        self._device = device
+        self._done = None     # the wave's closing event, on the card
         self._joined = False
         self._fetch = fetch
-        # timing events around the round's work on the card: from before
-        # its first launch to after its last result copy
-        self._span = None
-        if device.type == "cuda" and fetch is None:
-            self._span = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            self._span[0].record()
 
     def begin_wave(self, ext_pending, cig_pending) -> None:
         """Queue the copies of every launched batch's results to host
         memory (kernels.to_host), then the wave's closing event; a
         daemon's batches keep their _Remotes (it copies them itself)."""
-        if self._fetch is not None:
-            self.ext_wave, self.cig_wave = ext_pending, cig_pending
-            return
-        self.ext_wave = [(i, b, to_host(h)) for i, b, h in ext_pending]
-        self.cig_wave = [(i, b, to_host(h)) for i, b, h in cig_pending]
-        if self._span is not None:
-            self._span[1].record()
+        with profiler.span("engine.wave"):
+            if self._fetch is not None:
+                self.ext_wave, self.cig_wave = ext_pending, cig_pending
+                return
+            self.ext_wave = [(i, b, to_host(h)) for i, b, h in ext_pending]
+            self.cig_wave = [(i, b, to_host(h)) for i, b, h in cig_pending]
+            if self._device.type == "cuda":
+                self._done = torch.cuda.Event()
+                self._done.record()
 
     def join(self) -> None:
-        """Wait once for the wave's last event (stream order: every copy
-        of the round has then landed), or make the daemon's one collect
-        RPC; adds the wave's card seconds and the driving thread's wait
-        to the profiler."""
-        from .sysutil import profiler
+        """Wait once for the wave's closing event (stream order: every
+        copy of the round has then landed), or make the daemon's one
+        collect RPC; adds the driving thread's wait to the profiler."""
         if self._joined:
             raise RuntimeError("flight joined twice")
         self._joined = True
-        wave = 0.0
         t0 = time.monotonic()
-        if self._fetch is not None:
-            remotes = [h for _, _, h in self.ext_wave + self.cig_wave]
-            if remotes:
-                wave = self._fetch(remotes)
-            profiler.add_device_block(wave, exposed=time.monotonic() - t0)
-            return
-        if self._span is not None:
-            self._span[1].synchronize()
-        exposed = time.monotonic() - t0
-        if self._span is not None:
-            wave = self._span[0].elapsed_time(self._span[1]) / 1e3
-        profiler.add_device_block(wave, exposed=exposed)
+        with profiler.span("engine.join"):
+            if self._fetch is not None:
+                remotes = [h for _, _, h in self.ext_wave + self.cig_wave]
+                if remotes:
+                    self._fetch(remotes)
+            elif self._done is not None:
+                self._done.synchronize()
+        profiler.add_device_block(time.monotonic() - t0)
 
 
 def pump_align_generators(gens: list, engine: GpuExtEngine) -> None:

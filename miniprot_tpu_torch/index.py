@@ -90,10 +90,15 @@ class Index:
         the host seconds of its stages: fetch_s (nt.get, the reverse
         complement included), sketch_s (upload, K6, pull-back),
         bb_add_s and bb_finish_s."""
+        from .sysutil import profiler
+        with profiler.span("index_build"):
+            return cls._build(fn_or_db, opt, n_threads, sketch_device, stats)
+
+    @classmethod
+    def _build(cls, fn_or_db, opt: IdxOpt, n_threads: int, sketch_device,
+               stats: dict | None) -> "Index":
         tables.set_default_code(opt.trans_code)
         from . import native, sysutil
-        from .sysutil import profiler
-        profiler.start("index_build")
         nt = fn_or_db if isinstance(fn_or_db, NtDB) else NtDB.from_fasta(fn_or_db)
         bo = cls._block_offsets(nt, opt.bbit)
         jobs = [(cid, strand) for cid in range(nt.n_ctg) for strand in (0, 1)]
@@ -184,7 +189,6 @@ class Index:
         native.release_sketch_buf()
         if sketch_device is not None:
             sketch_gpu.release_buffers()
-        profiler.stop("index_build")
         return cls(opt, nt, bo, ki, kb)
 
     # ---------- queries ----------

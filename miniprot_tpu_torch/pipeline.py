@@ -270,21 +270,22 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
     if opt.flag & F_GFF and done_batches < 0:
         out.write("##gff-version 3\n")
     from .sysutil import profiler
-    profiler.start("map")
     n_mapped = 0
-    engine = None
-    if device is not None:
-        from .device import GpuExtEngine
-        engine = GpuExtEngine(opt, device)
-    n_workers = max(1, min(n_threads, os.cpu_count() or 1))
-    profiler.start("pool_start")
-    pool = _make_pool(mi, opt, n_workers) if n_workers > 1 else None
-    profiler.stop("pool_start")
-    pre = _Prefetcher(reader, opt.mini_batch_size)
+    engine = pool = pre = None
+    # the map's span ends where the teardown's begins (the finally below)
+    map_span = profiler.span("map").__enter__()
     try:
+        if device is not None:
+            from .device import GpuExtEngine
+            engine = GpuExtEngine(opt, device)
+        n_workers = max(1, min(n_threads, os.cpu_count() or 1))
+        with profiler.span("pool_start"):
+            pool = _make_pool(mi, opt, n_workers) if n_workers > 1 else None
+        pre = _Prefetcher(reader, opt.mini_batch_size)
         batch_idx = -1
         while True:
-            batch = pre.get()
+            with profiler.span("map.read_wait"):
+                batch = pre.get()
             if not batch:
                 break
             batch_idx += 1
@@ -343,18 +344,20 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
             from . import sysutil
             sysutil.log("map_file", "mapped %d sequences", len(batch))
     finally:
-        pre.close()
-        profiler.stop("map")
-        if engine is not None:
-            try:
-                _engine_stats(engine, stats)
-            finally:
-                engine.close()
-        if ckpt_f is not None:
-            ckpt_f.close()
-        if pool is not None:
-            pool.terminate()
-            pool.join()
+        if pre is not None:
+            pre.close()
+        map_span.__exit__(None, None, None)
+        with profiler.span("map.teardown"):
+            if engine is not None:
+                try:
+                    _engine_stats(engine, stats)
+                finally:
+                    engine.close()
+            if ckpt_f is not None:
+                ckpt_f.close()
+            if pool is not None:
+                pool.terminate()
+                pool.join()
     return n_mapped
 
 
@@ -362,7 +365,10 @@ def _engine_stats(engine, stats) -> None:
     """Log the device engine's DP split and put its counters in
     ``stats``: ``daemon`` says whether the engine shipped its batches to
     a device daemon, and then the daemon's side (engine.daemon_stats:
-    batches and kernel launches for this engine, peak planes and cap)."""
+    batches and kernel launches for this engine, peak planes and cap).
+    ``launched``: the problems the engine launched per DP recurrence
+    (sysutil.LAUNCHED_FIELDS); ``host_dp_s_by_reason``: the host
+    seconds of each ``host_reasons`` reason's DPs."""
     from . import sysutil
     from .sysutil import profiler
     sysutil.log(
@@ -380,6 +386,9 @@ def _engine_stats(engine, stats) -> None:
                          in engine.bucket_problems.items()},
                      host_reasons=dict(engine.host_reasons),
                      host_dp_s=engine.host_dp_s,
+                     host_dp_s_by_reason=dict(engine.host_dp_s_by_reason),
+                     launched={k: dict(zip(sysutil.LAUNCHED_FIELDS, v))
+                               for k, v in engine.launched.items()},
                      launch_s=engine.launch_s,
                      decode_s=engine.decode_s,
                      peak_pending_tb=engine.peak_pending_tb,
@@ -440,14 +449,14 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                 if stop.is_set():
                     return
                 ch = batch[c0:c0 + chunk]
-                t0 = time.monotonic()
-                if pool is not None:
-                    pre = pool.map(_worker_pre_align, [r.seq for r in ch],
-                                   chunksize=max(1, len(ch) // 32))
-                else:
-                    pre = [pre_align(mi, np.frombuffer(r.seq, np.uint8),
-                                     pre_opt) for r in ch]
-                profiler.add_stage("pre_align", time.monotonic() - t0)
+                with profiler.span("pre_align"):
+                    if pool is not None:
+                        pre = pool.map(_worker_pre_align,
+                                       [r.seq for r in ch],
+                                       chunksize=max(1, len(ch) // 32))
+                    else:
+                        pre = [pre_align(mi, np.frombuffer(r.seq, np.uint8),
+                                         pre_opt) for r in ch]
                 _put(ready, (ch, pre), stop)
             _put(ready, None, stop)
         except BaseException as e:   # raised in the pump, never hangs it
@@ -456,7 +465,9 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
     per_query: list = []
     gens: list = []
     active: dict[int, list] = {}
-    waited = [0.0]    # seconds the pump sat blocked on the queue
+    # seconds the pump sat blocked on the queue (while the profiler is
+    # on: align_rounds is the pump's wall less them)
+    waited = [0.0]
 
     def prime(ch, pre, into: dict) -> None:
         for rec, (regs, ext) in zip(ch, pre):
@@ -476,18 +487,20 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
         for more while ``into`` holds fewer than ``floor``; False once
         the producer is done."""
         while True:
-            t0 = time.monotonic()
-            try:
-                item = ready.get(block=len(into) < floor)
-            except _q.Empty:
+            if len(into) >= floor and ready.empty():
                 return True
-            finally:
-                waited[0] += time.monotonic() - t0
+            # the pump is the queue's one reader: a get after a non-empty
+            # look returns at once
+            wait = profiler.span("pre_align_wait")
+            with wait:
+                item = ready.get()
+            waited[0] += wait.dt
             if item is None:
                 return False
             if item[0] == "error":
                 raise item[1]
-            prime(*item, into)
+            with profiler.span("pump.prime"):
+                prime(*item, into)
 
     thread = threading.Thread(target=producer, daemon=True,
                               name="pre-align-producer")
@@ -504,8 +517,9 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                 if producing:
                     continue
                 break
-            handles = {gi: [engine.submit(req) for req in reqs]
-                       for gi, reqs in active.items()}
+            with profiler.span("pump.submit"):
+                handles = {gi: [engine.submit(req) for req in reqs]
+                           for gi, reqs in active.items()}
             fl = engine.flush_begin()
             # chunks that arrived meanwhile start while the card works;
             # their generators join the next round
@@ -514,27 +528,26 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                 producing = absorb(fresh, 0)
             results = engine.flush_end(fl)
             nxt: dict[int, list] = {}
-            for gi, hs in handles.items():
-                try:
-                    nxt[gi] = gens[gi].send([results[h] for h in hs])
-                except StopIteration:
-                    pass
+            with profiler.span("pump.advance"):
+                for gi, hs in handles.items():
+                    try:
+                        nxt[gi] = gens[gi].send([results[h] for h in hs])
+                    except StopIteration:
+                        pass
             nxt.update(fresh)
             active = nxt
     finally:
         # no producer outlives its batch
         stop.set()
         thread.join()
-    profiler.add_stage("pre_align_wait", waited[0])
     profiler.add_stage("align_rounds",
                        time.monotonic() - t_pump - waited[0])
     # release the large scratch slots of the pump's host DPs, as
     # map_query does after each of its queries
     trim_scratch()
-    profiler.start("finish_align")
-    done = [(rec, seq, finish_align(mi, opt, regs))
-            for rec, seq, regs in per_query]
-    profiler.stop("finish_align")
+    with profiler.span("finish_align"):
+        done = [(rec, seq, finish_align(mi, opt, regs))
+                for rec, seq, regs in per_query]
     return done
 
 
@@ -542,7 +555,6 @@ def _map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
                    id_counter, out, pool=None) -> None:
     from .sysutil import profiler
     done = map_batch_gpu(mi, opt, env, engine, batch, pool)
-    profiler.start("emit")
-    for rec, seq, regs in done:
-        _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)
-    profiler.stop("emit")
+    with profiler.span("emit"):
+        for rec, seq, regs in done:
+            _emit_query(mi, opt, rec.name, seq, regs, id_counter, out)

@@ -12,6 +12,8 @@ import sys
 import threading
 import time
 
+import numpy as np
+
 verbose = 3
 
 _t0 = time.monotonic()
@@ -55,33 +57,76 @@ def error(fmt: str, *args) -> None:
         sys.stderr.write(f"[ERROR]\033[1;31m {msg}\033[0m\n")
 
 
+class _NoSpan:
+    """What ``Profiler.span`` returns while the profiler is off."""
+
+    __slots__ = ()
+    dt = 0.0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """One timed interval of a stage: its seconds go to the profiler's
+    ``stages[name]`` (and to ``dt``); on the main thread it is also a
+    ``torch.profiler.record_function`` range of the same name, so a
+    Chrome trace of the main thread shows it on the trace's own clock
+    (a range opened on another thread does not reach the trace)."""
+
+    __slots__ = ("_prof", "_name", "_rf", "_t0", "dt")
+
+    def __init__(self, prof: "Profiler", name: str):
+        self._prof, self._name, self._rf = prof, name, None
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            import torch
+            self._rf = torch.profiler.record_function(self._name)
+            self._rf.__enter__()
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.dt = time.monotonic() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._prof.add_stage(self._name, self.dt)
+        return False
+
+
+# the counts per DP recurrence in Profiler.launched, in order
+LAUNCHED_FIELDS = ("problems", "cells", "seq_bytes", "padded_cells")
+
+
 class Profiler:
     """Per-stage wall-time + DP-cell observability (the reference only
     has the [M::...] stage lines; this build adds structured stage
-    timers and a GCUPS counter derived from DP cell counts).  Enabled by
-    --profile; near-zero cost when disabled."""
+    timers and counts of the DP work launched on the device).  Stages
+    are timed by ``span`` while ``enabled`` (--profile, --profile-trace,
+    a traced benchmark run); off, a span costs one attribute check."""
 
     def __init__(self) -> None:
         self.enabled = False
         self.stages: dict[str, float] = {}
         self.cells_host = 0       # DP cells evaluated by the host C kernel
-        self.cells_device = 0     # DP cells evaluated by the device kernels
-        self.cells_device_ext = 0    # split: extension kernel cells
-        self.cells_device_cig = 0    # split: CIGAR kernel cells
-        self.cells_device_cig_small = 0  # of those: small class (al<=32)
+        self.cells_device = 0     # padded cells of the launched batches
         self.n_dp_host = 0
         self.n_dp_device = 0
-        # collect-wave span: each flush round's seconds on the card's
-        # clock from before its first launch to after its last result
-        # copy (the host's packing between launches included, so not all
-        # of it is work on the card), plus the waits of collects made
-        # outside a wave (the planes-cap drain)
-        self.wave_span_s = 0.0
-        # the part of those seconds the driving thread actually waited
-        # (the wave's join and the drain); the rest ran behind host work
+        # per DP recurrence ("ext", "cigar", "cigar32"), the launched
+        # problems (LAUNCHED_FIELDS): [problems, unpadded cells
+        # sum(nl * al), sequence bytes sum(nl + al), padded cells]
+        self.launched: dict[str, list] = {}
+        # the seconds the driving thread waited on the card: the collect
+        # waves' joins and the planes-cap drains
         self.device_exposed_s = 0.0
         self.flush_rounds = 0
-        self._open: dict[str, float] = {}
         # the pre_align producer thread adds its stage seconds beside the
         # pump's stages: stage updates take this lock
         self._lock = threading.Lock()
@@ -92,13 +137,13 @@ class Profiler:
         self.__init__()
         self.enabled = enabled
 
-    def start(self, stage: str) -> None:
-        if self.enabled:
-            self._open[stage] = time.monotonic()
-
-    def stop(self, stage: str) -> None:
-        if self.enabled and stage in self._open:
-            self.add_stage(stage, time.monotonic() - self._open.pop(stage))
+    def span(self, name: str):
+        """``with profiler.span(name):`` adds the block's seconds to
+        ``stages[name]`` while the profiler is on (see _Span); off, it
+        is a shared no-op, with no clock read and no torch call."""
+        if not self.enabled:
+            return _NO_SPAN
+        return _Span(self, name)
 
     def add_stage(self, stage: str, dt: float) -> None:
         """Add ``dt`` seconds to ``stage`` (any thread)."""
@@ -106,32 +151,37 @@ class Profiler:
             with self._lock:
                 self.stages[stage] = self.stages.get(stage, 0.0) + dt
 
-    # cell counting is always on (two integer adds per DP call): the
-    # host/device cell split is a first-class product metric (what
-    # fraction of DP work lands on the card), reported by map_file on
-    # device runs
+    # the DP counters are always on (a few integer adds per DP call, one
+    # numpy pass per launched batch): the host/device split and the
+    # launched work are reported by map_file on device runs
 
     def add_host_dp(self, nl: int, al: int) -> None:
         self.cells_host += nl * al
         self.n_dp_host += 1
 
-    def add_device_dp(self, cells: int, n: int, kind: str = "ext") -> None:
-        self.cells_device += cells
-        self.n_dp_device += n
-        if kind.startswith("cig"):
-            self.cells_device_cig += cells
-            if kind.startswith("cig_small"):
-                self.cells_device_cig_small += cells
-        else:
-            self.cells_device_ext += cells
+    def add_device_dp(self, kind: str, nl, al, padded: int,
+                      into: dict | None = None, sign: int = 1) -> None:
+        """Count launched problems of DP recurrence ``kind``: ``nl``,
+        ``al`` their genome and query lengths, ``padded`` the cells
+        their batch computes; also into ``into`` (an engine's own
+        counts, the same layout as ``launched``).  ``sign`` -1 takes
+        them back out (a problem redone on the host)."""
+        nl = np.asarray(nl, np.int64)
+        al = np.asarray(al, np.int64)
+        add = (sign * len(nl), sign * int(np.dot(nl, al)),
+               sign * int(nl.sum() + al.sum()), sign * int(padded))
+        for counts in (self.launched, into):
+            if counts is not None:
+                c = counts.setdefault(kind, [0, 0, 0, 0])
+                for j, v in enumerate(add):
+                    c[j] += v
+        self.cells_device += add[3]
+        self.n_dp_device += add[0]
 
-    def add_device_block(self, dt: float,
-                         exposed: float | None = None) -> None:
-        """dt: a collect wave's span (or a blocking collect's wait);
-        exposed: the seconds of it the driving thread waited, ``dt``
-        when left out (a blocking collect)."""
-        self.wave_span_s += dt
-        self.device_exposed_s += dt if exposed is None else exposed
+    def add_device_block(self, exposed: float) -> None:
+        """Seconds the driving thread waited on the card (a wave's join
+        or a blocking collect)."""
+        self.device_exposed_s += exposed
 
     def device_fraction(self) -> float:
         """Fraction of DP cells evaluated on the device (padded batch
@@ -154,10 +204,15 @@ class Profiler:
             sys.stderr.write(
                 f"[P::dp_device] {self.n_dp_device} DPs, "
                 f"{self.cells_device / 1e9:.3f} Gcells (padded batches), "
-                f"{self.flush_rounds} flush rounds; collect waves span "
-                f"{self.wave_span_s:.3f} s (first launch to last result "
-                "copy, host packing between launches included), the "
-                f"driving thread waited {self.device_exposed_s:.3f} s\n")
+                f"{self.flush_rounds} flush rounds; the driving thread "
+                f"waited {self.device_exposed_s:.3f} s on the card\n")
+            for kind, (n, cells, nbytes, padded) in sorted(
+                    self.launched.items()):
+                sys.stderr.write(
+                    f"[P::launched] {kind}: {n} problems, "
+                    f"{cells / 1e9:.3f} Gcells unpadded of "
+                    f"{padded / 1e9:.3f} padded, {nbytes / 1e6:.3f} MB of "
+                    "sequence\n")
         self._report_kernel_launches()
 
     @staticmethod

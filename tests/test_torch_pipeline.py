@@ -173,9 +173,11 @@ def _fake_engine(monkeypatch, fail=None):
     ext_b = _FakeBatch("ext", log, [(7, 8, 9)], fail)
     cig_b = _FakeBatch("cig", log, [(5, np.array([3], np.uint32))])
     monkeypatch.setattr(eng, "_launch_ext",
-                        lambda jobs: ([([0], ext_b, ("ext", fail))], [1]))
+                        lambda jobs: ([([0], ext_b, ("ext", fail))],
+                                      {"ext_short": [1]}))
     monkeypatch.setattr(eng, "_launch_cig",
-                        lambda jobs: ([([0], cig_b, ("cig", None))], [1]))
+                        lambda jobs: ([([0], cig_b, ("cig", None))],
+                                      {"cig_short": [1]}))
 
     def to_host(handle):
         name, how = handle

@@ -230,4 +230,9 @@ def test_cli_profile_trace_on_host_engine(workload, tmp_path):
                      f"--profile-trace={tdir}", fa, faa]) == 0
     assert open(plain).read() == open(traced).read()
     with open(tdir / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    # the profiler's spans are on for the traced map, and off after it
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"map", "map.read_wait", "map.teardown"} <= spans
+    from miniprot_tpu_torch.sysutil import profiler
+    assert not profiler.enabled
