@@ -90,17 +90,15 @@ class DpEnv:
         self.io_end = opt.io_end
 
     def dp_cigars(self, jobs):
-        """Batched CIGAR DPs (mx_dp16x4) -> [(score, cigar), ...]."""
+        """Batched CIGAR DPs (one native call, mx_dp16x4 groups) ->
+        [(score, cigar), ...]."""
         from .sysutil import profiler
-        clean = []
-        for nsq, asq, ss in jobs:
-            nsq = np.ascontiguousarray(nsq, dtype=np.uint8)
-            asq = np.ascontiguousarray(asq, dtype=np.uint8)
-            if ss is not None:
-                ss = np.ascontiguousarray(ss, dtype=np.uint8)
-            profiler.add_host_dp(len(nsq), len(asq))
-            clean.append((nsq, asq, ss))
-        return self.ctx.dp_cigars(clean, self.io)
+        packed = native.DpJobs([j[0] for j in jobs], [j[1] for j in jobs],
+                               [j[2] for j in jobs], native.DPF_CIGAR,
+                               self.io)
+        profiler.add_host_dps(packed.nl, packed.al)
+        self.ctx.dp_many(packed, native._x4_pays(self.ctx))
+        return packed.cigar_results()
 
     def dp(self, nsq, asq, flag, ss=None, io=None):
         from .sysutil import profiler

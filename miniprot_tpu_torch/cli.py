@@ -456,7 +456,8 @@ def _run(argv: list[str], server_parse: bool = False):
         from .parallel.runner import map_file_multihost
         try:
             map_file_multihost(mi, pos[1], mo, shard_id, n_shards,
-                               spool_dir, out, resume=True, device=device)
+                               spool_dir, out, resume=True, device=device,
+                               n_threads=n_threads)
         finally:
             if out is not sys.stdout:
                 out.close()

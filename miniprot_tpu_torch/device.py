@@ -12,9 +12,14 @@ regions and queries and dispatches them in shape-bucketed batches:
 Launches are asynchronous on the card's current stream.  flush_begin
 launches every batch of a round, queues the copies of all their results
 to pinned host memory behind the kernels (the collect wave, one event
-per batch), and then runs the host engine's share of the round (jobs
+per batch), and then starts the host engine's share of the round (jobs
 routed to the host by design) while the card works and the results
 travel; flush_end waits once, on the wave's last event, and decodes.
+With one thread (n_workers 1) the host share runs in flush_begin on the
+calling thread.  With more, it runs on the engine's n_workers - 1
+worker threads, one native call each that holds no interpreter lock
+(native.DpJobs, Dp16Ctx.dp_many), longest jobs first, and flush_end
+joins it after the card's wave.
 
 Host routing (part of the algorithm, identical results, counted in
 n_host and, per reason, in host_reasons): ext jobs outside
@@ -44,7 +49,10 @@ cap.
 
 from __future__ import annotations
 
+import heapq
 import os as _os
+import queue as _queue
+import threading
 import time
 from dataclasses import dataclass
 
@@ -56,6 +64,7 @@ from .kernels import resolve_device, to_host
 from .kernels import nasw_cigar_scan as csk
 from .kernels import nasw_cigar_striped as cst
 from .kernels import nasw_ext as nk
+from . import native
 from .native import DPF_CIGAR, DPF_EXT_LEFT, DPF_EXT_RIGHT
 from .options import MapOpt
 from .sysutil import profiler
@@ -159,9 +168,13 @@ class GpuExtEngine:
     daemon.attach for when the engine attaches without one)."""
 
     def __init__(self, opt: MapOpt, device="cuda", cig_impl=None,
-                 daemon: str | None = None):
+                 daemon: str | None = None, n_workers: int = 1):
         from . import daemon as _daemon
         self.opt = opt
+        # the map's thread count: n_workers - 1 threads run the host
+        # share (started on first use, joined in close)
+        self.n_workers = max(1, int(n_workers))
+        self._workers: _HostWorkers | None = None
         self.client = _daemon.attach(device, daemon)
         self._unsent: list = []      # (batch, _Remote) not yet shipped
         # the CIGAR kernel: "scan" (go >= 1 only) or "striped"; the
@@ -203,10 +216,15 @@ class GpuExtEngine:
         self.bucket_problems: dict[tuple, list] = {}
         # host-routed DPs per reason; the host seconds of each reason's
         # DPs, and those of flush_begin's share (every reason but the
-        # round-cap redos, which run in collects)
+        # round-cap redos, which run in collects), summed over the
+        # threads that ran them
         self.host_reasons: dict[str, int] = {}
         self.host_dp_s_by_reason: dict[str, float] = {}
         self.host_dp_s = 0.0
+        # host-routed DPs that ran on a worker thread, and the seconds
+        # flush_end waited for the workers
+        self.host_offthread = 0
+        self.host_join_s = 0.0
         # the launched problems per DP recurrence, as
         # profiler.launched counts them: [problems, sum(nl * al),
         # sum(nl + al), padded cells]
@@ -325,9 +343,22 @@ class GpuExtEngine:
                 "daemon_pending_cap": now["pending_cap"]}
 
     def close(self) -> None:
-        """Close the daemon connection (nothing to do without one)."""
-        if self.client is not None:
-            self.client.close()
+        """Join the worker threads and close the daemon connection."""
+        try:
+            if self._workers is not None:
+                self._workers, workers = None, self._workers
+                workers.close()
+        finally:
+            if self.client is not None:
+                self.client.close()
+
+    def trim_scratch(self) -> None:
+        """Have each worker thread release its native scratch slots above
+        mapper.SCRATCH_TRIM_BYTES, as the pump's thread does after each
+        mini-batch (queued behind any share it is running)."""
+        if self._workers is not None:
+            from .mapper import trim_scratch
+            self._workers.each(trim_scratch)
 
     def _prep(self, job, ext_left, io):
         return nk.prep_problem(job.nsq, job.asq, sp=self.sp,
@@ -599,6 +630,11 @@ class GpuExtEngine:
         if self.client is not None:
             self._send()
         fl.begin_wave(ext_pending, cig_pending)
+        if self.n_workers > 1:
+            if ext_host or cig_host:
+                with profiler.span("engine.host_pack"):
+                    fl.host = self._start_host_share(fl, ext_host, cig_host)
+            return fl
         for reason, idxs in ext_host.items():
             self.host_dp_s += self._run_host(reason, self._ext_hosts,
                                              fl.ext_jobs, idxs)
@@ -607,9 +643,46 @@ class GpuExtEngine:
                                              fl.cig_jobs, idxs)
         return fl
 
+    def _start_host_share(self, fl, ext_host, cig_host) -> "_HostShare":
+        """Pack the round's host-routed jobs once and hand them to the
+        worker threads, a slice and one native call each."""
+        if self._workers is None:
+            self._workers = _HostWorkers(self.n_workers - 1)
+        share = _HostShare(fl, ext_host, cig_host, self.opt.io)
+        jobs = share.jobs
+        profiler.add_host_dps(jobs.nl, jobs.al)
+        self.n_host += jobs.n
+        self.host_offthread += jobs.n
+        use_x4 = native._x4_pays(self.env.ctx)
+        share.tasks = [
+            self._workers.put(w, _HostTask(self.env.ctx.dp_many, jobs,
+                                           use_x4, sel))
+            for w, sel in enumerate(_longest_first(
+                jobs.nl.astype(np.int64) * jobs.al, self.n_workers - 1))]
+        return share
+
+    def _join_host_share(self, fl) -> None:
+        """Wait for the flight's host share (a worker's error raises),
+        count its seconds and put its results in the jobs."""
+        share, fl.host = fl.host, None
+        t0 = time.monotonic()
+        with profiler.span("engine.host_join"):
+            share.join()
+        self.host_join_s += time.monotonic() - t0
+        secs = np.bincount(share.reason_of, weights=share.jobs.job_s,
+                           minlength=len(share.reasons))
+        for reason, dt in zip(share.reasons, secs.tolist()):
+            self.host_dp_s_by_reason[reason] = (
+                self.host_dp_s_by_reason.get(reason, 0.0) + dt)
+            # stage seconds only: they ran on other threads
+            profiler.add_stage("engine.host_dp." + reason, dt)
+        self.host_dp_s += float(secs.sum())
+        share.scatter(fl)
+
     def flush_end(self, fl: "_Flight") -> list:
-        """Join the flight's collect wave, decode, and return results
-        aligned with its submit order.  A copy or decode error raises."""
+        """Join the flight's collect wave, decode, join its host share,
+        and return results aligned with its submit order.  A copy,
+        decode or worker error raises."""
         fl.join()
         for chunk, batch, host in fl.ext_wave:
             for i, r in zip(chunk, self._collect(batch, host)):
@@ -617,6 +690,8 @@ class GpuExtEngine:
         for idxs, batch, host in fl.cig_wave:
             self._decode_cig_one(fl.cig_jobs, idxs, batch, host)
         fl.ext_wave = fl.cig_wave = None
+        if fl.host is not None:
+            self._join_host_share(fl)
         with profiler.span("engine.scatter"):
             out = []
             for kind, ref in fl.requests:
@@ -646,9 +721,11 @@ class _Flight:
     the engine's _fetch, and the wave's join is one collect RPC)."""
 
     __slots__ = ("requests", "ext_jobs", "cig_jobs", "ext_wave",
-                 "cig_wave", "_device", "_done", "_joined", "_fetch")
+                 "cig_wave", "host", "_device", "_done", "_joined",
+                 "_fetch")
 
     def __init__(self, device, fetch=None):
+        self.host = None      # the host share on the workers (_HostShare)
         self._device = device
         self._done = None     # the wave's closing event, on the card
         self._joined = False
@@ -684,6 +761,125 @@ class _Flight:
             elif self._done is not None:
                 self._done.synchronize()
         profiler.add_device_block(time.monotonic() - t0)
+
+
+def _longest_first(cost: np.ndarray, k: int) -> list:
+    """Job indices split into at most k slices (int32 arrays): jobs by
+    cost, largest first, each to the slice with the least cost so far,
+    so that no large job is left to start last."""
+    order = np.argsort(-cost, kind="stable")
+    parts: list = [[] for _ in range(k)]
+    load = [(0, w) for w in range(k)]
+    for i, c in zip(order.tolist(), cost[order].tolist()):
+        tot, w = heapq.heappop(load)
+        parts[w].append(i)
+        heapq.heappush(load, (tot + c, w))
+    return [np.asarray(p, np.int32) for p in parts if p]
+
+
+class _HostShare:
+    """One round's host-routed DPs on the worker threads: the jobs
+    packed once (native.DpJobs: ext jobs, then CIGAR jobs), each job's
+    reason, and the tasks running its slices."""
+
+    __slots__ = ("jobs", "reasons", "reason_of", "ext_idx", "cig_idx",
+                 "tasks")
+
+    def __init__(self, fl, ext_host: dict, cig_host: dict, io: int):
+        self.reasons = list(ext_host) + list(cig_host)
+        self.ext_idx = [i for idxs in ext_host.values() for i in idxs]
+        self.cig_idx = [i for idxs in cig_host.values() for i in idxs]
+        self.reason_of = np.repeat(
+            np.arange(len(self.reasons)),
+            [len(v) for v in ext_host.values()]
+            + [len(v) for v in cig_host.values()])
+        jobs = ([fl.ext_jobs[i] for i in self.ext_idx]
+                + [fl.cig_jobs[i] for i in self.cig_idx])
+        n_ext = len(self.ext_idx)
+        self.jobs = native.DpJobs(
+            [j.nsq for j in jobs], [j.asq for j in jobs],
+            [j.ss for j in jobs],
+            [DPF_EXT_LEFT if j.ext_left else DPF_EXT_RIGHT
+             for j in jobs[:n_ext]] + [DPF_CIGAR] * len(self.cig_idx),
+            [j.io for j in jobs[:n_ext]] + [io] * len(self.cig_idx))
+        self.tasks: list = []
+
+    def join(self) -> None:
+        """Wait for every slice; then raise the first worker error."""
+        for t in self.tasks:
+            t.done.wait()
+        for t in self.tasks:
+            if t.error is not None:
+                raise t.error
+
+    def scatter(self, fl) -> None:
+        """The results into the jobs, as the inline host share sets
+        them: ext (score, nt_len, aa_len), CIGAR (score, CIGAR view)."""
+        p = self.jobs
+        sc, ntl, aal = p.score.tolist(), p.nt_len.tolist(), p.aa_len.tolist()
+        for k, i in enumerate(self.ext_idx):
+            fl.ext_jobs[i].result = (sc[k], ntl[k], aal[k])
+        n_ext = len(self.ext_idx)
+        for (i, r) in zip(self.cig_idx, p.cigar_results(
+                range(n_ext, p.n))):
+            fl.cig_jobs[i].result = r
+
+
+class _HostTask:
+    """fn(*args) for a worker thread; ``done`` is set when it has ended,
+    ``error`` holds what it raised."""
+
+    __slots__ = ("fn", "args", "done", "error")
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+        self.done = threading.Event()
+        self.error = None
+
+    def run(self) -> None:
+        try:
+            self.fn(*self.args)
+        except BaseException as e:   # raised in flush_end
+            self.error = e
+        finally:
+            self.done.set()
+
+
+class _HostWorkers:
+    """The engine's worker threads, each with its own queue of tasks;
+    close() ends and joins them."""
+
+    def __init__(self, n: int):
+        self._queues = [_queue.SimpleQueue() for _ in range(n)]
+        self._threads = [threading.Thread(target=self._work, args=(q,),
+                                          daemon=True,
+                                          name=f"engine-host-{w}")
+                         for w, q in enumerate(self._queues)]
+        for t in self._threads:
+            t.start()
+
+    @staticmethod
+    def _work(q) -> None:
+        while True:
+            task = q.get()
+            if task is None:
+                return
+            task.run()
+
+    def put(self, w: int, task: _HostTask) -> _HostTask:
+        self._queues[w].put(task)
+        return task
+
+    def each(self, fn) -> None:
+        """fn() on every worker, behind its queued tasks."""
+        for q in self._queues:
+            q.put(_HostTask(fn))
+
+    def close(self) -> None:
+        for q in self._queues:
+            q.put(None)
+        for t in self._threads:
+            t.join()
 
 
 def pump_align_generators(gens: list, engine: GpuExtEngine) -> None:

@@ -5,6 +5,8 @@ Exposes:
   sort_pair(xy)            - in-place pair sort keyed on column 0
   chain(...)               - anchor chaining (chain.c semantics)
   dp16(...)                - striped splice/frameshift DP (nasw-sse.c semantics)
+  DpJobs, Dp16Ctx.dp_many  - many DPs packed for one call that holds no
+                             interpreter lock (mx_dp16_many)
   chn_sc_ungap[_approx]    - ungapped chain rescoring (hit.c:6-30)
 """
 
@@ -335,6 +337,14 @@ _dp16x4_raw = ct.CFUNCTYPE(
     ct.c_int32, ct.c_int32, ct.c_int32, ct.c_int32,
     ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p)(
         ct.cast(_lib.mx_dp16x4, ct.c_void_p).value)
+_dp16_many_raw = ct.CFUNCTYPE(
+    ct.c_int32, ct.c_int32, *([ct.c_void_p] * 8),
+    ct.c_void_p, ct.c_int32, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+    ct.c_void_p, ct.c_int32,
+    ct.c_int32, ct.c_int32, ct.c_int32,
+    ct.c_int32, ct.c_int32, ct.c_float, ct.c_int32,
+    *([ct.c_void_p] * 7))(
+        ct.cast(_lib.mx_dp16_many, ct.c_void_p).value)
 _score_ungapped_raw = ct.CFUNCTYPE(
     ct.c_int32, ct.c_void_p, ct.c_void_p, ct.c_int32, ct.c_void_p,
     ct.c_int32, ct.c_void_p, ct.c_void_p)(
@@ -376,6 +386,71 @@ def _x4_pays(ctx: "Dp16Ctx") -> bool:
             best[1] = min(best[1], time.perf_counter() - t0)
         _X4_PAYS = best[0] < best[1] * 0.85
     return _X4_PAYS
+
+
+def _packed(seqs: list) -> tuple:
+    """(one uint8 buffer holding ``seqs`` back to back, each one's
+    address in it as int64, their lengths as int32)."""
+    n = len(seqs)
+    lens = np.fromiter(map(len, seqs), np.int32, n)
+    buf = (np.concatenate(seqs).astype(np.uint8, copy=False) if n
+           else np.empty(0, np.uint8))
+    addr = np.empty(n, np.int64)
+    if n:
+        addr[0] = buf.ctypes.data
+        np.cumsum(lens[:-1], out=addr[1:])
+        addr[1:] += addr[0]
+    return buf, addr, lens
+
+
+class DpJobs:
+    """DP jobs packed for one mx_dp16_many call, and room for their
+    results.  nsqs / asqs: the jobs' genome and query byte strings; sss:
+    each job's splice-score track or None; flags / ios: a DPF_* mode and
+    an io each, or one for all.  The sequences are copied into one
+    buffer each, so any array (a view, a reversed slice) may be given.
+    Results after Dp16Ctx.dp_many: ``score``, ``nt_len``, ``aa_len``
+    (the ext jobs' ends), ``n_cig`` and ``cig_off`` into ``cig``, and
+    ``job_s`` (each job's seconds)."""
+
+    def __init__(self, nsqs, asqs, sss, flags, ios):
+        n = self.n = len(nsqs)
+        self._nt, self.nt_addr, self.nl = _packed(nsqs)
+        self._aa, self.aa_addr, self.al = _packed(asqs)
+        self.ss_addr = np.zeros(n, np.int64)
+        has = [i for i, s in enumerate(sss) if s is not None]
+        if has:
+            self._ss, self.ss_addr[has], ss_len = _packed(
+                [sss[i] for i in has])
+            if (ss_len < self.nl[has]).any():
+                raise ValueError("a splice-score track shorter than its "
+                                 "genome window")
+        self.flag = np.empty(n, np.int32)
+        self.flag[:] = flags
+        self.io = np.empty(n, np.int32)
+        self.io[:] = ios
+        room = self.nl.astype(np.int64) + self.al + 16
+        self.cig_off = np.zeros(n, np.int64)
+        np.cumsum(room[:-1], out=self.cig_off[1:])
+        self.cig = np.empty(int(room.sum()), np.uint32)
+        self.score = np.empty(n, np.int32)
+        self.nt_len = np.empty(n, np.int32)
+        self.aa_len = np.empty(n, np.int32)
+        self.n_cig = np.zeros(n, np.int32)
+        self.job_s = np.zeros(n, np.float64)
+        # the arrays' addresses, taken once for every call on them
+        self.ptrs = tuple(a.ctypes.data for a in (
+            self.nt_addr, self.nl, self.aa_addr, self.al, self.ss_addr,
+            self.flag, self.io, self.score, self.nt_len, self.aa_len,
+            self.cig, self.cig_off, self.n_cig, self.job_s))
+
+    def cigar_results(self, jobs=None) -> list:
+        """[(score, CIGAR), ...] of the CIGAR jobs ``jobs`` (all when
+        None); each CIGAR a view into ``cig``."""
+        idx = range(self.n) if jobs is None else jobs
+        sc, off, nc = (self.score.tolist(), self.cig_off.tolist(),
+                       self.n_cig.tolist())
+        return [(sc[i], self.cig[off[i]:off[i] + nc[i]]) for i in idx]
 
 
 class Dp16Ctx:
@@ -425,11 +500,30 @@ class Dp16Ctx:
                   cig.ctypes.data, ct.byref(ncig))
         return int(sc.value), int(ntl.value), int(aal.value), cig[:ncig.value]
 
-    def dp_cigars(self, jobs: list, io: int) -> list:
-        """Run many CIGAR-mode DPs, batching 4 similar-size problems per
-        AVX-512 call (mx_dp16x4; bit-identical to per-problem mx_dp16).
+    def dp_many(self, jobs: DpJobs, use_x4: bool, sel=None) -> None:
+        """Run the packed ``jobs`` (those at indices ``sel``, an int32
+        array, when given) in one mx_dp16_many call, which holds no
+        interpreter lock: their results land in ``jobs``.  use_x4: group
+        CIGAR jobs 4 to an AVX-512 call (see dp_cigars); results are
+        identical either way."""
+        if sel is None:
+            n, psel = jobs.n, None
+        else:
+            n, psel = len(sel), sel.ctypes.data
+        p = jobs.ptrs
+        if _dp16_many_raw(
+                n, psel, *p[:7], self._pmat, self.asize, self._pnt4,
+                self._paa20, self._pcodon, self._psp, self.sp_null_bonus,
+                self.go, self.ge, self.fs, self.xdrop, self.end_bonus,
+                self.ie_coef, int(use_x4), *p[7:]) < 0:
+            raise MemoryError("mx_dp16_many")
 
-        jobs: list of (nsq, asq, ss_or_None) C-contiguous uint8 arrays.
+    def dp_cigars(self, jobs: list, io: int) -> list:
+        """Run many CIGAR-mode DPs in one native call (dp_many), 4
+        similar-size problems per AVX-512 call (mx_dp16x4; bit-identical
+        to per-problem mx_dp16).
+
+        jobs: list of (nsq, asq, ss_or_None) uint8 arrays.
         Returns [(score, cigar_array), ...] in job order.
 
         Whether 4-wide batching actually beats four 8-lane calls depends
@@ -437,70 +531,10 @@ class Dp16Ctx:
         Lake+/Zen4, half-rate on Skylake-X and most VMs), so the first
         call runs a one-shot probe and the loser is never used again —
         results are identical either way."""
-        if not _x4_pays(self):
-            out = []
-            for nsq, asq, ss in jobs:
-                sc, _, _, c = self.dp(nsq, asq, 0x1, io, ss)
-                out.append((sc, c))
-            return out
-        res = [None] * len(jobs)
-        for i, (nsq, asq, ss) in enumerate(jobs):
-            if len(asq) == 0:  # degenerate: the single-call path guards slen==0
-                sc, _, _, c = self.dp(nsq, asq, 0x1, io, ss)
-                res[i] = (sc, c)
-        order = sorted((i for i in range(len(jobs)) if res[i] is None),
-                       key=lambda i: -len(jobs[i][0]))
-        nq = np.empty(4, np.int64)
-        aq = np.empty(4, np.int64)
-        sq = np.empty(4, np.int64)
-        nls = np.empty(4, np.int32)
-        als = np.empty(4, np.int32)
-        offs = np.empty(4, np.int64)
-        scores = np.empty(4, np.int32)
-        ncigs = np.empty(4, np.int32)
-        chunks: list[list[int]] = []
-        cur: list[int] = []
-        cost = mnl = msl = 0
-        for i in order:  # sorted by nl desc; gate on padding waste
-            nl_i = len(jobs[i][0])
-            sl_i = (len(jobs[i][1]) + 7) // 8
-            if cur and (len(cur) == 4
-                        or ((len(cur) + 1) * mnl * max(msl, sl_i)
-                            > 1.3 * (cost + nl_i * sl_i))):
-                chunks.append(cur)
-                cur, cost = [], 0
-            if not cur:
-                mnl, msl = nl_i, sl_i
-            else:
-                msl = max(msl, sl_i)
-            cur.append(i)
-            cost += nl_i * sl_i
-        if cur:
-            chunks.append(cur)
-        for chunk in chunks:
-            n = len(chunk)
-            tot = 0
-            for k, i in enumerate(chunk):
-                nsq, asq, ss = jobs[i]
-                nq[k] = nsq.ctypes.data
-                aq[k] = asq.ctypes.data
-                sq[k] = 0 if ss is None else ss.ctypes.data
-                nls[k] = len(nsq)
-                als[k] = len(asq)
-                offs[k] = tot
-                tot += len(nsq) + len(asq) + 16
-            cig = np.empty(tot, np.uint32)
-            _dp16x4_raw(n, nq.ctypes.data, nls.ctypes.data,
-                        aq.ctypes.data, als.ctypes.data, sq.ctypes.data,
-                        self._pmat, self.asize, self._pnt4, self._paa20,
-                        self._pcodon, self._psp, self.sp_null_bonus,
-                        self.go, self.ge, io, self.fs,
-                        scores.ctypes.data, cig.ctypes.data,
-                        offs.ctypes.data, ncigs.ctypes.data)
-            for k, i in enumerate(chunk):
-                o = int(offs[k])
-                res[i] = (int(scores[k]), cig[o:o + int(ncigs[k])].copy())
-        return res
+        packed = DpJobs([j[0] for j in jobs], [j[1] for j in jobs],
+                        [j[2] for j in jobs], DPF_CIGAR, io)
+        self.dp_many(packed, _x4_pays(self))
+        return packed.cigar_results()
 
     def score_ungapped(self, nsq: np.ndarray, asq: np.ndarray) -> int:
         return _score_ungapped_raw(nsq.ctypes.data, asq.ctypes.data, len(asq),

@@ -39,6 +39,7 @@
 #include <string.h>
 #include <assert.h>
 #include <pthread.h>
+#include <time.h>
 
 #define MX_EXPORT __attribute__((visibility("default")))
 
@@ -1953,6 +1954,109 @@ MX_EXPORT void mx_dp16x4(
 	}
 }
 
+static double mx_now(void)
+{
+	struct timespec ts;
+	timespec_get(&ts, TIME_UTC);
+	return (double)ts.tv_sec + 1e-9 * (double)ts.tv_nsec;
+}
+
+static int mx_u64_cmp(const void *a, const void *b)
+{
+	uint64_t x = *(const uint64_t*)a, y = *(const uint64_t*)b;
+	return x < y ? -1 : x > y;
+}
+
+/* Many DPs of one option set in one call, so that a thread runs a whole
+ * share of host DPs without going back to the interpreter.  Job i is
+ * nsq_addr[i] (nls[i] bytes), asq_addr[i] (als[i] bytes), ss_addr[i] (a
+ * splice-score track, 0 for none), flags[i] (DPF_CIGAR, DPF_EXT_LEFT or
+ * DPF_EXT_RIGHT) and ios[i]; the call runs the jobs sel[0..n_sel), or
+ * jobs 0..n_sel-1 when sel is 0.  CIGAR jobs with al >= 1 go longest nl
+ * first (ties in job order) in groups of up to 4 of one io through
+ * mx_dp16x4 when use_x4 is set, a group closing when one more job would
+ * take its padded cells past 1.3x its own (the policy of mx_align_region's
+ * batcher); every other job is one mx_dp16.  The results are
+ * bit-identical to one mx_dp16 per job: out_scores[i], out_nt_len[i] and
+ * out_aa_len[i], the CIGAR at cig_buf + cig_off[i] (room for nl + al + 16
+ * entries) with n_cigs[i] entries, and, when job_s is not 0, job_s[i] the
+ * job's seconds (a group's shared by its jobs' cells).  Returns 0, or -1
+ * when out of memory. */
+MX_EXPORT int32_t mx_dp16_many(
+	int32_t n_sel, const int32_t *sel,
+	const int64_t *nsq_addr, const int32_t *nls,
+	const int64_t *asq_addr, const int32_t *als,
+	const int64_t *ss_addr, const int32_t *flags, const int32_t *ios,
+	const int8_t *mat, int32_t asize,
+	const uint8_t *nt4, const uint8_t *aa20, const uint8_t *codon_tab,
+	const int32_t *sp, int32_t sp_null_bonus,
+	int32_t go_, int32_t ge_, int32_t fs_,
+	int32_t xdrop, int32_t end_bonus, float ie_coef, int32_t use_x4,
+	int32_t *out_scores, int32_t *out_nt_len, int32_t *out_aa_len,
+	uint32_t *cig_buf, const int64_t *cig_off, int32_t *n_cigs,
+	double *job_s)
+{
+	uint64_t *grp;   /* (INT32_MAX - nl) << 32 | job: nl desc, then job */
+	int32_t k, n_grp = 0;
+	grp = (uint64_t*)malloc(sizeof(uint64_t) * (n_sel > 0 ? n_sel : 1));
+	if (!grp) return -1;
+	for (k = 0; k < n_sel; ++k) {
+		int32_t i = sel ? sel[k] : k;
+		double t0;
+		if (use_x4 && flags[i] == DPF_CIGAR && als[i] >= 1) {
+			grp[n_grp++] = (uint64_t)(INT32_MAX - nls[i]) << 32 | (uint32_t)i;
+			continue;
+		}
+		t0 = job_s ? mx_now() : 0.0;
+		mx_dp16((const uint8_t *)(intptr_t)nsq_addr[i], nls[i],
+		        (const uint8_t *)(intptr_t)asq_addr[i], als[i],
+		        (const uint8_t *)(intptr_t)ss_addr[i],
+		        mat, asize, nt4, aa20, codon_tab, sp, sp_null_bonus,
+		        flags[i], go_, ge_, ios[i], fs_, xdrop, end_bonus, ie_coef,
+		        out_scores + i, out_nt_len + i, out_aa_len + i,
+		        cig_buf + cig_off[i], n_cigs + i);
+		if (job_s) job_s[i] = mx_now() - t0;
+	}
+	qsort(grp, n_grp, sizeof(uint64_t), mx_u64_cmp);
+	k = 0;
+	while (k < n_grp) {
+		int64_t nq[4], aq[4], sq[4], offs[4], cost = 0, mnl = 0, msl = 0;
+		int32_t nl4[4], al4[4], sc4[4], nc4[4], idx[4], m = 0, j;
+		double t0, dt;
+		while (k + m < n_grp && m < 4) {
+			int32_t i = (int32_t)(uint32_t)grp[k + m];
+			int64_t nl_i = nls[i], sl_i = (als[i] + 7) / 8;
+			if (m > 0 && (ios[i] != ios[idx[0]]
+			              || (m + 1) * mnl * (msl > sl_i ? msl : sl_i) * 10
+			                 > 13 * (cost + nl_i * sl_i)))
+				break;
+			if (m == 0) mnl = nl_i, msl = sl_i;
+			else msl = msl > sl_i ? msl : sl_i;
+			cost += nl_i * sl_i;
+			idx[m] = i, nq[m] = nsq_addr[i], aq[m] = asq_addr[i];
+			sq[m] = ss_addr[i], nl4[m] = nls[i], al4[m] = als[i];
+			offs[m] = cig_off[i];
+			++m;
+		}
+		t0 = job_s ? mx_now() : 0.0;
+		mx_dp16x4(m, nq, nl4, aq, al4, sq, mat, asize, nt4, aa20, codon_tab,
+		          sp, sp_null_bonus, go_, ge_, ios[idx[0]], fs_, sc4,
+		          cig_buf, offs, nc4);
+		dt = job_s ? mx_now() - t0 : 0.0;
+		for (j = 0; j < m; ++j) {
+			int32_t i = idx[j];
+			out_scores[i] = sc4[j], n_cigs[i] = nc4[j];
+			out_nt_len[i] = nls[i], out_aa_len[i] = als[i];
+			if (job_s)
+				job_s[i] = cost > 0 ? dt * (double)nls[i]
+				           * ((als[i] + 7) / 8) / (double)cost : dt / m;
+		}
+		k += m;
+	}
+	free(grp);
+	return 0;
+}
+
 /* Expose sequence prep for cross-validation of the vectorized Python prep. */
 MX_EXPORT void mx_prep(
 	const uint8_t *nsq, int32_t nl, const uint8_t *nt4, const uint8_t *codon_tab,
@@ -3220,74 +3324,34 @@ MX_EXPORT void mx_align_region(
 		PLAN_GAP(r_ve - as_, r_ve - as_ + r_ntl, r_qe, r_qe + r_aal);
 #undef PLAN_GAP
 
-	/* run the CIGAR jobs: order by genome length desc and batch up to
-	 * 4 per AVX-512 call with the padding-waste gate (identical policy
-	 * to the Python dp_cigars batcher; results are bit-identical to
-	 * per-problem mx_dp16 either way) */
+	/* run the CIGAR jobs in one mx_dp16_many call: longest first, up to
+	 * 4 per AVX-512 call when use_x4 (bit-identical to per-problem
+	 * mx_dp16 either way) */
 	cig_cap = 0;
 	for (k = 0; k < n_jobs; ++k) cig_cap += jb_ntl[k] + jb_aal[k] + 16;
 	jb_cig = (uint32_t*)malloc(sizeof(uint32_t) * (cig_cap > 0 ? cig_cap : 1));
-	jb_off = (int64_t*)malloc(sizeof(int64_t) * (n_jobs + 1));
-	jb_sc = (int32_t*)malloc(sizeof(int32_t) * (n_jobs + 1));
-	jb_nc = (int32_t*)malloc(sizeof(int32_t) * (n_jobs + 1));
+	jb_off = (int64_t*)malloc(sizeof(int64_t) * (n_jobs + 1) * 4);
+	jb_sc = (int32_t*)malloc(sizeof(int32_t) * (n_jobs + 1) * 8);
+	jb_nc = jb_sc + (n_jobs + 1);
 	{
-		int64_t off = 0;
-		for (k = 0; k < n_jobs; ++k)
+		int64_t off = 0, *nq = jb_off + (n_jobs + 1), *aq = nq + (n_jobs + 1);
+		int64_t *sq = aq + (n_jobs + 1);
+		int32_t *nls = jb_nc + (n_jobs + 1), *als = nls + (n_jobs + 1);
+		int32_t *flags = als + (n_jobs + 1), *ios = flags + (n_jobs + 1);
+		int32_t *ntl = ios + (n_jobs + 1), *aal = ntl + (n_jobs + 1);
+		for (k = 0; k < n_jobs; ++k) {
 			jb_off[k] = off, off += jb_ntl[k] + jb_aal[k] + 16;
-	}
-	if (n_jobs > 0) {
-		int32_t *order = (int32_t*)malloc(sizeof(int32_t) * n_jobs);
-		int32_t i, j;
-		for (i = 0; i < n_jobs; ++i) order[i] = i;
-		for (i = 1; i < n_jobs; ++i) {  /* insertion sort, nl desc, stable */
-			int32_t t = order[i];
-			for (j = i; j > 0 && jb_ntl[order[j - 1]] < jb_ntl[t]; --j)
-				order[j] = order[j - 1];
-			order[j] = t;
+			nq[k] = (int64_t)(intptr_t)(nt + jb_nts[k]);
+			aq[k] = (int64_t)(intptr_t)(aa + jb_aas[k]);
+			sq[k] = ss ? (int64_t)(intptr_t)(ss + jb_nts[k]) : 0;
+			nls[k] = (int32_t)jb_ntl[k], als[k] = (int32_t)jb_aal[k];
+			flags[k] = DPF_CIGAR, ios[k] = io_;
+			cells += jb_ntl[k] * jb_aal[k], ++ndp;
 		}
-		i = 0;
-		while (i < n_jobs) {
-			int32_t n_chunk = 0;
-			if (use_x4) {
-				int64_t cost = 0, mnl = 0, msl = 0;
-				for (j = i; j < n_jobs && n_chunk < X4; ++j) {
-					int64_t nl_i = jb_ntl[order[j]];
-					int64_t sl_i = (jb_aal[order[j]] + 7) / 8;
-					if (n_chunk > 0 &&
-					    (n_chunk + 1) * mnl * (msl > sl_i ? msl : sl_i) * 10
-					        > 13 * (cost + nl_i * sl_i))
-						break;
-					if (n_chunk == 0) mnl = nl_i, msl = sl_i;
-					else msl = msl > sl_i ? msl : sl_i;
-					cost += nl_i * sl_i;
-					++n_chunk;
-				}
-			} else n_chunk = 1;
-			{
-				int64_t nsq_addr[X4], asq_addr[X4], ss_addr[X4], offs[X4];
-				int32_t nls[X4], als[X4], scs[X4], ncs[X4];
-				for (j = 0; j < n_chunk; ++j) {
-					int32_t jj = order[i + j];
-					nsq_addr[j] = (int64_t)(intptr_t)(nt + jb_nts[jj]);
-					asq_addr[j] = (int64_t)(intptr_t)(aa + jb_aas[jj]);
-					ss_addr[j] = ss ? (int64_t)(intptr_t)(ss + jb_nts[jj]) : 0;
-					nls[j] = (int32_t)jb_ntl[jj];
-					als[j] = (int32_t)jb_aal[jj];
-					offs[j] = jb_off[jj];
-					cells += jb_ntl[jj] * jb_aal[jj], ++ndp;
-				}
-				mx_dp16x4(n_chunk, nsq_addr, nls, asq_addr, als, ss_addr,
-				          mat, asize, nt4, aa20, codon_tab, sp,
-				          sp_null_bonus, go_, ge_, io_, fs_, scs, jb_cig,
-				          offs, ncs);
-				for (j = 0; j < n_chunk; ++j) {
-					int32_t jj = order[i + j];
-					jb_sc[jj] = scs[j], jb_nc[jj] = ncs[j];
-				}
-			}
-			i += n_chunk;
-		}
-		free(order);
+		mx_dp16_many((int32_t)n_jobs, 0, nq, nls, aq, als, sq, flags, ios,
+		             mat, asize, nt4, aa20, codon_tab, sp, sp_null_bonus,
+		             go_, ge_, fs_, xdrop, end_bonus, ie_coef, use_x4, jb_sc,
+		             ntl, aal, jb_cig, jb_off, jb_nc, 0);
 	}
 
 	/* assemble the region CIGAR in plan order */
@@ -3310,7 +3374,7 @@ MX_EXPORT void mx_align_region(
 	*out_score = score, *n_cig = nc;
 	*out_cells = cells, *out_ndp = ndp;
 	free(plan), free(jb_nts), free(jb_ntl), free(jb_aas), free(jb_aal);
-	free(jb_cig), free(jb_off), free(jb_sc), free(jb_nc);
+	free(jb_cig), free(jb_off), free(jb_sc);
 }
 
 /* ---------------------------------------------------------------- */

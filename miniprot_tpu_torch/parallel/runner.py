@@ -126,7 +126,8 @@ def wait_for_spools(spool_dir: str, num_processes: int) -> None:
 
 def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
               num_processes: int, spool_dir: str,
-              resume: bool = False, device="cuda") -> int:
+              resume: bool = False, device="cuda",
+              n_threads: int = 1) -> int:
     """Map queries with global index % num_processes == process_id,
     streaming one record per query to the shard spool in ascending query
     order.
@@ -141,13 +142,16 @@ def map_shard(mi: Index, fn: str, opt: MapOpt, process_id: int,
     raises without a card, "cpu" runs the same engine on the kernels'
     plain versions, None maps on the host C engine; the spooled records
     are identical either way.  An engine error raises (no host
-    fallback)."""
+    fallback).  n_threads: this shard's thread count (-t), the engine's
+    n_workers."""
     if resume and os.path.exists(spool_path(spool_dir, process_id)):
         return -1
     engine = None
     if device is not None:
         from ..device import GpuExtEngine
-        engine = GpuExtEngine(opt, device=device)
+        engine = GpuExtEngine(opt, device=device,
+                              n_workers=max(1, min(n_threads,
+                                                   os.cpu_count() or 1)))
     env = DpEnv(opt)
     reader = BatchReader(fn)
     par_emit = emit_is_parallel(opt)
@@ -244,7 +248,8 @@ def emit_merged(opt: MapOpt, num_processes: int, spool_dir: str,
 
 def map_file_multihost(mi: Index, fn: str, opt: MapOpt, process_id: int,
                        num_processes: int, spool_dir: str, out,
-                       resume: bool = False, device="cuda") -> int:
+                       resume: bool = False, device="cuda",
+                       n_threads: int = 1) -> int:
     """Full multi-process run for one process: map my shard (on
     ``device``, as map_shard), barrier, and (on process 0) emit the
     merged ordered output.
@@ -255,7 +260,7 @@ def map_file_multihost(mi: Index, fn: str, opt: MapOpt, process_id: int,
     flag uses, where each shard is an independent process over a shared
     spool directory."""
     n = map_shard(mi, fn, opt, process_id, num_processes, spool_dir,
-                  resume=resume, device=device)
+                  resume=resume, device=device, n_threads=n_threads)
     if num_processes > 1:
         import torch.distributed as tdist
         if tdist.is_available() and tdist.is_initialized():

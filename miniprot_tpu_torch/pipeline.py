@@ -275,10 +275,10 @@ def map_file(mi: Index, fn: str, opt: MapOpt, n_threads: int = 1,
     # the map's span ends where the teardown's begins (the finally below)
     map_span = profiler.span("map").__enter__()
     try:
+        n_workers = max(1, min(n_threads, os.cpu_count() or 1))
         if device is not None:
             from .device import GpuExtEngine
-            engine = GpuExtEngine(opt, device)
-        n_workers = max(1, min(n_threads, os.cpu_count() or 1))
+            engine = GpuExtEngine(opt, device, n_workers=n_workers)
         with profiler.span("pool_start"):
             pool = _make_pool(mi, opt, n_workers) if n_workers > 1 else None
         pre = _Prefetcher(reader, opt.mini_batch_size)
@@ -368,7 +368,10 @@ def _engine_stats(engine, stats) -> None:
     batches and kernel launches for this engine, peak planes and cap).
     ``launched``: the problems the engine launched per DP recurrence
     (sysutil.LAUNCHED_FIELDS); ``host_dp_s_by_reason``: the host
-    seconds of each ``host_reasons`` reason's DPs."""
+    seconds of each ``host_reasons`` reason's DPs (summed over the
+    threads that ran them); ``host_offthread``: the host-routed DPs that
+    ran on the engine's worker threads; ``host_join_s``: the seconds
+    flush_end waited for them."""
     from . import sysutil
     from .sysutil import profiler
     sysutil.log(
@@ -387,6 +390,8 @@ def _engine_stats(engine, stats) -> None:
                      host_reasons=dict(engine.host_reasons),
                      host_dp_s=engine.host_dp_s,
                      host_dp_s_by_reason=dict(engine.host_dp_s_by_reason),
+                     host_offthread=engine.host_offthread,
+                     host_join_s=engine.host_join_s,
                      launched={k: dict(zip(sysutil.LAUNCHED_FIELDS, v))
                                for k, v in engine.launched.items()},
                      launch_s=engine.launch_s,
@@ -543,8 +548,9 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
     profiler.add_stage("align_rounds",
                        time.monotonic() - t_pump - waited[0])
     # release the large scratch slots of the pump's host DPs, as
-    # map_query does after each of its queries
+    # map_query does after each of its queries, and the engine's workers'
     trim_scratch()
+    engine.trim_scratch()
     with profiler.span("finish_align"):
         done = [(rec, seq, finish_align(mi, opt, regs))
                 for rec, seq, regs in per_query]

@@ -159,6 +159,11 @@ class Profiler:
         self.cells_host += nl * al
         self.n_dp_host += 1
 
+    def add_host_dps(self, nl: np.ndarray, al: np.ndarray) -> None:
+        """add_host_dp of many DPs: their genome and query lengths."""
+        self.cells_host += int(np.dot(nl.astype(np.int64), al))
+        self.n_dp_host += len(nl)
+
     def add_device_dp(self, kind: str, nl, al, padded: int,
                       into: dict | None = None, sign: int = 1) -> None:
         """Count launched problems of DP recurrence ``kind``: ``nl``,
