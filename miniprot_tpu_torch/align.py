@@ -92,17 +92,13 @@ class DpEnv:
     def dp_cigars(self, jobs):
         """Batched CIGAR DPs (one native call, mx_dp16x4 groups) ->
         [(score, cigar), ...]."""
-        from .sysutil import profiler
         packed = native.DpJobs([j[0] for j in jobs], [j[1] for j in jobs],
                                [j[2] for j in jobs], native.DPF_CIGAR,
                                self.io)
-        profiler.add_host_dps(packed.nl, packed.al)
         self.ctx.dp_many(packed, native._x4_pays(self.ctx))
         return packed.cigar_results()
 
     def dp(self, nsq, asq, flag, ss=None, io=None):
-        from .sysutil import profiler
-        profiler.add_host_dp(len(nsq), len(asq))
         nsq = np.ascontiguousarray(nsq, dtype=np.uint8)
         asq = np.ascontiguousarray(asq, dtype=np.uint8)
         if ss is not None:
@@ -519,7 +515,6 @@ def align_region(env: DpEnv, opt: MapOpt, mi, qlen: int, aa: np.ndarray,
         r.ve, r.qe, dbg_more_dp, env.io, env.io_end,
         opt.kmer2, opt.max_ext)
     score, r.vs, r.qs, r.ve, r.qe, cigar, cells, ndp = res
-    from .sysutil import profiler
-    profiler.cells_host += cells
-    profiler.n_dp_host += ndp
+    from .sysutil import HOST_ENGINE, profiler
+    profiler.add_host_cells(HOST_ENGINE, cells, ndp)
     _region_finish(opt, mi, qlen, aa, r, score, cigar, nt, as_, ae)

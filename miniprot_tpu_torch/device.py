@@ -220,6 +220,9 @@ class GpuExtEngine:
         # threads that ran them
         self.host_reasons: dict[str, int] = {}
         self.host_dp_s_by_reason: dict[str, float] = {}
+        # the host-routed DPs' cells, sum(nl * al), per reason (as
+        # profiler.host_cells counts them)
+        self.host_cells: dict[str, int] = {}
         self.host_dp_s = 0.0
         # host-routed DPs that ran on a worker thread, and the seconds
         # flush_end waited for the workers
@@ -229,6 +232,9 @@ class GpuExtEngine:
         # profiler.launched counts them: [problems, sum(nl * al),
         # sum(nl + al), padded cells]
         self.launched: dict[str, list] = {}
+        # the regions whose DP-step generators map_batch_gpu drove
+        # through this engine
+        self.dp_regions = 0
         # host seconds spent inside the batches' launch() calls (upload,
         # prep and kernel launches, and any wait for the card there), and
         # decoding collected results (the CIGARs' run expansion)
@@ -259,12 +265,17 @@ class GpuExtEngine:
     def _route_host(self, reason: str) -> None:
         self.host_reasons[reason] = self.host_reasons.get(reason, 0) + 1
 
-    def _run_host(self, reason: str, fn, *args) -> float:
-        """fn(*args), host DPs routed for ``reason``: its seconds go to
+    def _run_host(self, reason: str, fn, jobs, idxs) -> float:
+        """fn(jobs, idxs), the host DPs of jobs ``idxs``, routed for
+        ``reason``: their cells are counted, their seconds go to
         host_dp_s_by_reason and are returned."""
+        nl = np.array([len(jobs[i].nsq) for i in idxs], np.int64)
+        al = np.array([len(jobs[i].asq) for i in idxs], np.int64)
+        profiler.add_host_cells(reason, int(np.dot(nl, al)), len(idxs),
+                                into=self.host_cells)
         t0 = time.monotonic()
         with profiler.span("engine.host_dp." + reason):
-            fn(*args)
+            fn(jobs, idxs)
         dt = time.monotonic() - t0
         self.host_dp_s_by_reason[reason] = (
             self.host_dp_s_by_reason.get(reason, 0.0) + dt)
@@ -488,12 +499,6 @@ class GpuExtEngine:
                 return sc, b
         return None
 
-    def _cig_host(self, cig_jobs, i) -> None:
-        job = cig_jobs[i]
-        sc, _, _, c = self.env.dp(job.nsq, job.asq, DPF_CIGAR, ss=job.ss)
-        job.result = (sc, c)
-        self.n_host += 1
-
     def _cig_hosts(self, cig_jobs, idxs) -> None:
         """The CIGAR jobs ``idxs`` on the host engine: one batched native
         call instead of one per tiny rectangle."""
@@ -520,7 +525,8 @@ class GpuExtEngine:
                                        into=self.launched, sign=-1)
                 self.n_device -= 1
                 self._route_host("walk_round_cap")
-                self._run_host("walk_round_cap", self._cig_host, cig_jobs, k)
+                self._run_host("walk_round_cap", self._cig_hosts, cig_jobs,
+                               [k])
             else:
                 cig_jobs[k].result = r
 
@@ -604,7 +610,7 @@ class GpuExtEngine:
                         # reference's double-saturating subs; host it
                         self._route_host("cig_spsc_donor")
                         self.host_dp_s += self._run_host(
-                            "cig_spsc_donor", self._cig_host, cig_jobs, i)
+                            "cig_spsc_donor", self._cig_hosts, cig_jobs, [i])
                         continue
                     batch.add(nas, aas, d, a, io=self.opt.io)
                     usable.append(i)
@@ -650,15 +656,22 @@ class GpuExtEngine:
             self._workers = _HostWorkers(self.n_workers - 1)
         share = _HostShare(fl, ext_host, cig_host, self.opt.io)
         jobs = share.jobs
-        profiler.add_host_dps(jobs.nl, jobs.al)
+        cells = jobs.nl.astype(np.int64) * jobs.al
+        # each reason's jobs are contiguous in the share
+        firsts = np.searchsorted(share.reason_of,
+                                 np.arange(len(share.reasons)))
+        for reason, c, n in zip(share.reasons,
+                                np.add.reduceat(cells, firsts).tolist(),
+                                np.diff(firsts, append=jobs.n).tolist()):
+            profiler.add_host_cells(reason, c, n, into=self.host_cells)
         self.n_host += jobs.n
         self.host_offthread += jobs.n
         use_x4 = native._x4_pays(self.env.ctx)
         share.tasks = [
             self._workers.put(w, _HostTask(self.env.ctx.dp_many, jobs,
                                            use_x4, sel))
-            for w, sel in enumerate(_longest_first(
-                jobs.nl.astype(np.int64) * jobs.al, self.n_workers - 1))]
+            for w, sel in enumerate(_longest_first(cells,
+                                                   self.n_workers - 1))]
         return share
 
     def _join_host_share(self, fl) -> None:

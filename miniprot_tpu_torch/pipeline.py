@@ -369,9 +369,11 @@ def _engine_stats(engine, stats) -> None:
     ``launched``: the problems the engine launched per DP recurrence
     (sysutil.LAUNCHED_FIELDS); ``host_dp_s_by_reason``: the host
     seconds of each ``host_reasons`` reason's DPs (summed over the
-    threads that ran them); ``host_offthread``: the host-routed DPs that
+    threads that ran them); ``host_cells_by_reason``: their cells, sum
+    of nl * al, per reason; ``host_offthread``: the host-routed DPs that
     ran on the engine's worker threads; ``host_join_s``: the seconds
-    flush_end waited for them."""
+    flush_end waited for them; ``dp_regions``: the regions whose DP
+    steps map_batch_gpu ran through the engine."""
     from . import sysutil
     from .sysutil import profiler
     sysutil.log(
@@ -390,6 +392,8 @@ def _engine_stats(engine, stats) -> None:
                      host_reasons=dict(engine.host_reasons),
                      host_dp_s=engine.host_dp_s,
                      host_dp_s_by_reason=dict(engine.host_dp_s_by_reason),
+                     host_cells_by_reason=dict(engine.host_cells),
+                     dp_regions=engine.dp_regions,
                      host_offthread=engine.host_offthread,
                      host_join_s=engine.host_join_s,
                      launched={k: dict(zip(sysutil.LAUNCHED_FIELDS, v))
@@ -547,6 +551,7 @@ def map_batch_gpu(mi: Index, opt: MapOpt, env: DpEnv, engine, batch,
         thread.join()
     profiler.add_stage("align_rounds",
                        time.monotonic() - t_pump - waited[0])
+    engine.dp_regions += len(gens)
     # release the large scratch slots of the pump's host DPs, as
     # map_query does after each of its queries, and the engine's workers'
     trim_scratch()

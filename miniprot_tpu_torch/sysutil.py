@@ -101,6 +101,9 @@ class _Span:
         return False
 
 
+# the host_cells key of the DPs of a map on the host C engine alone
+HOST_ENGINE = "host_engine"
+
 # the counts per DP recurrence in Profiler.launched, in order
 LAUNCHED_FIELDS = ("problems", "cells", "seq_bytes", "padded_cells")
 
@@ -115,7 +118,9 @@ class Profiler:
     def __init__(self) -> None:
         self.enabled = False
         self.stages: dict[str, float] = {}
-        self.cells_host = 0       # DP cells evaluated by the host C kernel
+        # DP cells (sum of nl * al) evaluated by the host C kernel, per
+        # route: a host_reasons key of the device engine, or HOST_ENGINE
+        self.host_cells: dict[str, int] = {}
         self.cells_device = 0     # padded cells of the launched batches
         self.n_dp_host = 0
         self.n_dp_device = 0
@@ -151,18 +156,19 @@ class Profiler:
             with self._lock:
                 self.stages[stage] = self.stages.get(stage, 0.0) + dt
 
-    # the DP counters are always on (a few integer adds per DP call, one
-    # numpy pass per launched batch): the host/device split and the
-    # launched work are reported by map_file on device runs
+    # the DP counters are always on (one numpy pass per launched batch
+    # and per round's host share of a reason): the host/device split and
+    # the launched work are reported by map_file on device runs
 
-    def add_host_dp(self, nl: int, al: int) -> None:
-        self.cells_host += nl * al
-        self.n_dp_host += 1
-
-    def add_host_dps(self, nl: np.ndarray, al: np.ndarray) -> None:
-        """add_host_dp of many DPs: their genome and query lengths."""
-        self.cells_host += int(np.dot(nl.astype(np.int64), al))
-        self.n_dp_host += len(nl)
+    def add_host_cells(self, reason: str, cells: int, n: int,
+                       into: dict | None = None) -> None:
+        """Count ``n`` host DPs of ``cells`` cells in all, routed to the
+        host for ``reason``; also into ``into`` (an engine's own counts,
+        the same layout as ``host_cells``)."""
+        for counts in (self.host_cells, into):
+            if counts is not None:
+                counts[reason] = counts.get(reason, 0) + cells
+        self.n_dp_host += n
 
     def add_device_dp(self, kind: str, nl, al, padded: int,
                       into: dict | None = None, sign: int = 1) -> None:
@@ -191,7 +197,7 @@ class Profiler:
     def device_fraction(self) -> float:
         """Fraction of DP cells evaluated on the device (padded batch
         cells counted as device work; 0.0 when no DP ran)."""
-        tot = self.cells_host + self.cells_device
+        tot = sum(self.host_cells.values()) + self.cells_device
         return self.cells_device / tot if tot else 0.0
 
     def report(self) -> None:
@@ -200,11 +206,12 @@ class Profiler:
         for stage, dt in sorted(self.stages.items()):
             sys.stderr.write(f"[P::{stage}] {dt:.3f} s\n")
         wall = self.stages.get("map") or realtime()
-        if self.cells_host:
+        cells_host = sum(self.host_cells.values())
+        if cells_host:
             sys.stderr.write(
                 f"[P::dp_host] {self.n_dp_host} DPs, "
-                f"{self.cells_host / 1e9:.3f} Gcells, "
-                f"{self.cells_host / 1e9 / wall:.3f} GCUPS over the map stage\n")
+                f"{cells_host / 1e9:.3f} Gcells, "
+                f"{cells_host / 1e9 / wall:.3f} GCUPS over the map stage\n")
         if self.cells_device:
             sys.stderr.write(
                 f"[P::dp_device] {self.n_dp_device} DPs, "

@@ -85,7 +85,7 @@ def test_port_cpu_engine_byte_identical(workload, mode, monkeypatch):
     tmi = tidx.Index.build(fa, topt.IdxOpt())
     sp = spsc if mode == "spsc" else None
     from miniprot_tpu_torch.sysutil import profiler
-    profiler.cells_host = profiler.cells_device = 0
+    profiler.host_cells, profiler.cells_device = {}, 0
     jo, to = _opts(jopt, flag, jmi, sp), _opts(topt, flag, tmi, sp)
     if mode == "go0":
         jo.go = to.go = 0
